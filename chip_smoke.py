@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, time, serve.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, time, serve, train.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a CUDA GPU
 
 Phases, each fatal on failure (nothing is caught and carried on):
   1. card and software: the nvidia-smi name and power limit, torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN.
-  2. build both CUDA kernels from gat_recommendation_torch/csrc with nvcc
+  2. build the CUDA libraries from gat_recommendation_torch/csrc with nvcc
      (in parallel) and print the build seconds and register counts.
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes (attention B=1, N in {8,16,32,56}, and B=512, N=56;
@@ -25,7 +25,25 @@ Phases, each fatal on failure (nothing is caught and carried on):
      scoring launch per request.
   6. a torch.profiler breakdown of the same requests (device busy time,
      idle share, the kernels by device time).
-  7. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+  7. the training kernels against their plain versions on the card, at the
+     train shapes: attention forward and backward at B=512, N in {8, 56},
+     without dropout and with dropout 0.1 from one seed (the keep bits are
+     the same by construction); the sparse and the dense AdamW over the full
+     467,456 x 256 table, float32 moments and bfloat16 moments with
+     stochastic rounding (moments bit-equal); the score kernel at the eval
+     batch of 512. Times, bounds and library yardsticks as in phase 3.
+  8. the training slice at full width: seeded synthetic sessions through
+     SessionDataset and iterate_batches(batch_size=512), a Trainer epoch of
+     6 sparse steps over all four buckets, 6 more sparse steps on one batch
+     (the loss must fall), 2 dense steps, all with dropout 0.1, then
+     Trainer.evaluate and the eval step's top-20 against the dense oracle;
+     with dropout 0, two sparse steps on the card against a CPU copy of the
+     port. The launch counters over the counted steps: 2 attention forward,
+     2 attention backward and 1 sparse AdamW per sparse step; 2, 2 and 1
+     dense AdamW per dense step; 2 attention forward and 1 scoring launch
+     per eval batch.
+  9. a torch.profiler breakdown of sparse train steps.
+ 10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -46,21 +64,41 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gat_recommendation_torch.data.batching import (
+    SessionDataset,
+    iterate_batches,
+    make_grad_index,
+    to_device,
+)
 from gat_recommendation_torch.models.registry import create_model
 from gat_recommendation_torch.ops import _build
+from gat_recommendation_torch.ops.embedding_adamw import (
+    embedding_adamw,
+    embedding_adamw_reference,
+)
 from gat_recommendation_torch.ops.score_chunkmax import (
     score_chunkmax,
     score_chunkmax_reference,
 )
-from gat_recommendation_torch.ops.scoring import dense_topk, select_topk
+from gat_recommendation_torch.ops.scoring import dense_topk, full_catalog_topk, select_topk
 from gat_recommendation_torch.ops.session_attention import (
     session_attention,
+    session_attention_backward,
     session_attention_reference,
 )
+from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
 from gat_recommendation_torch.serving import app
 from gat_recommendation_torch.serving.recommender import Recommender
 from gat_recommendation_torch.serving.validation import validate_request
 from gat_recommendation_torch.train import checkpoint
+from gat_recommendation_torch.train.losses import create_loss_function
+from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
+from gat_recommendation_torch.train.trainer import (
+    Trainer,
+    make_eval_step,
+    make_sparse_train_step,
+    make_train_step,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # outside the tensor cores (the kernels use no TF32).
@@ -74,10 +112,31 @@ BUCKETS = (8, 16, 32, 56)
 ATTN_TOL = dict(rtol=1e-5, atol=2e-5)  # float32, summation order differs
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)  # float32 dots of 256 terms, |score| ~ 16
 SERVE_TOL = 1e-4  # card vs CPU copy, per score
+ATTN_GRAD_TOL = dict(rtol=1e-5, atol=2e-5)  # float32 gradients, summation order differs
+TABLE_TOL = dict(rtol=1e-6, atol=1e-7)  # AdamW table; the moments must be bit-equal
+ADAMW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-5)
+ROWS = 467_456  # padded_rows(NUM_ITEMS)
+TRAIN_BATCH, NEGATIVES, DROPOUT = 512, 5, 0.1
+NUM_SESSIONS = 4000
+# Card vs CPU copy of the port, dropout 0: loss; touched table rows and BatchNorm
+# buffers. Where a gradient entry is itself at rounding-noise level, AdamW's
+# m / (sqrt(v) + eps) turns its relative error into a share of lr = 1e-3, so the
+# row tolerance holds for all but 1 entry in 10,000 and a tenth of lr caps the rest.
+TRAIN_LOSS_TOL, TRAIN_ROW_TOL, TRAIN_ROW_CAP = 1e-4, 1e-5, 1e-4
 
 REPLACES = {
     "session_attention": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
+    "session_attention_backward": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
     "score_chunkmax": "gat_recommendation_tpu/ops/pallas/score_chunkmax.py:57",
+    "sparse_adamw": "gat_recommendation_tpu/ops/pallas/sparse_adamw.py:117",
+    "embedding_adamw": "gat_recommendation_tpu/ops/pallas/embedding_adamw.py:90",
+}
+SOURCES = {
+    "session_attention": "gat_recommendation_torch/csrc/session_attention.cu",
+    "session_attention_backward": "gat_recommendation_torch/csrc/session_attention.cu",
+    "score_chunkmax": "gat_recommendation_torch/csrc/score_chunkmax.cu",
+    "sparse_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
+    "embedding_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
 }
 
 
@@ -140,15 +199,16 @@ def device_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return ms
 
 
-def timings(kernel, plain, library) -> dict:
-    """Device and eager times of the kernel, its plain version and the library call."""
+def timings(kernel, plain, library, calls: int = 20, reps: int = 10, eager_reps: int = 30) -> dict:
+    """Device and eager times of the kernel, its plain version and the library
+    call (None where no PyTorch call computes the same function)."""
     return {
-        "ms": device_ms(kernel),
-        "plain_ms": device_ms(plain),
-        "library_ms": device_ms(library),
-        "eager_ms": eager_ms(kernel),
-        "plain_eager_ms": eager_ms(plain),
-        "library_eager_ms": eager_ms(library),
+        "ms": device_ms(kernel, calls, reps),
+        "plain_ms": device_ms(plain, calls, reps),
+        "library_ms": None if library is None else device_ms(library, calls, reps),
+        "eager_ms": eager_ms(kernel, eager_reps),
+        "plain_eager_ms": eager_ms(plain, eager_reps),
+        "library_eager_ms": None if library is None else eager_ms(library, eager_reps),
     }
 
 
@@ -195,16 +255,20 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
     }
 
 
-def check_scoring(gen: torch.Generator) -> dict:
+def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
+    """B = 1 with an exclusion mask is the serving call; B = 512 without one
+    is the eval step's (timed at a smaller depth: the kernel loops over B)."""
     dev = torch.device("cuda")
-    rows = 467_456  # padded_rows(466,865)
+    rows = ROWS
     table = torch.randn(rows, DIM, device=dev, generator=gen)
     table[0] = 0.0
     table[NUM_ITEMS:] = 0.0
-    sess = torch.randn(1, DIM, device=dev, generator=gen)
-    exclude = torch.zeros(rows, dtype=torch.uint8, device=dev)
-    exclude[torch.randint(1, NUM_ITEMS, (50,), device=dev, generator=gen)] = 1
-    exclude[0] = 1
+    sess = torch.randn(B, DIM, device=dev, generator=gen)
+    exclude = None
+    if B == 1:
+        exclude = torch.zeros(rows, dtype=torch.uint8, device=dev)
+        exclude[torch.randint(1, NUM_ITEMS, (50,), device=dev, generator=gen)] = 1
+        exclude[0] = 1
     got = score_chunkmax(sess, table, NUM_ITEMS, exclude)
     want = score_chunkmax_reference(sess, table, NUM_ITEMS, exclude)
     torch.cuda.synchronize()
@@ -215,28 +279,31 @@ def check_scoring(gen: torch.Generator) -> dict:
     s_got, i_got = select_topk(*got, 20)
     s_want, _ = dense_topk(sess, table, 20, NUM_ITEMS, exclude)
     torch.testing.assert_close(s_got, s_want, **SCORE_TOL)
-    if int(finite.sum()) != NUM_ITEMS - int(exclude[:NUM_ITEMS].sum()):
+    n_excluded = 0 if exclude is None else int(exclude[:NUM_ITEMS].sum())
+    if int(finite.sum()) != B * (NUM_ITEMS - n_excluded):
         raise AssertionError("phantom and excluded columns must be -inf, all others finite")
 
-    n_bytes = 4 * rows * DIM + 4 * DIM + rows + 4 * rows + 4 * rows // 32
-    bound, bound_by = bound_ms(n_bytes, 2 * rows * DIM)
+    n_bytes = 4 * rows * DIM + 4 * B * DIM + (rows if B == 1 else 0) + B * (4 * rows + 4 * rows // 32)
+    bound, bound_by = bound_ms(n_bytes, 2 * B * rows * DIM)
 
     def library():
         scores = torch.matmul(sess, table.T)
-        return scores.view(1, -1, 32).amax(-1)
+        return scores.view(B, -1, 32).amax(-1)
 
+    depth = dict(calls=20, reps=10, eager_reps=30) if B == 1 else dict(calls=2, reps=3, eager_reps=3)
     return {
-        "shape": f"B=1 V={rows} D={DIM}",
+        "shape": f"B={B} V={rows} D={DIM}",
         "max_abs_err": err,
         **timings(
             lambda: score_chunkmax(sess, table, NUM_ITEMS, exclude),
             lambda: score_chunkmax_reference(sess, table, NUM_ITEMS, exclude),
             library,
+            **depth,
         ),
         "bound_ms": bound,
         "bound_by": bound_by,
         "with_selection_eager_ms": eager_ms(
-            lambda: select_topk(*score_chunkmax(sess, table, NUM_ITEMS, exclude), 20)
+            lambda: select_topk(*score_chunkmax(sess, table, NUM_ITEMS, exclude), 20), depth["eager_reps"]
         ),
     }
 
@@ -271,7 +338,7 @@ def check_ties(gen: torch.Generator) -> None:
 
 def make_checkpoint(path: Path) -> None:
     gen = torch.Generator().manual_seed(0)
-    model = create_model("graph_transformer_optimized", NUM_ITEMS, generator=gen)
+    model = create_model("graph_transformer_optimized", NUM_ITEMS, generator=gen, device="cpu")
     with torch.no_grad():
         model.cached_pe.normal_(generator=gen)
         model.cached_pe[NUM_ITEMS:] = 0.0
@@ -283,13 +350,16 @@ def make_checkpoint(path: Path) -> None:
     checkpoint.save(path, model, epoch=0, best_val_metric=0.0)
 
 
-def make_edges(path: Path, rng: np.random.Generator) -> None:
+def make_edge_arrays(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
     """Random co-occurrence edges between items close in id (offset 1..64),
     canonical (min, max) like the real graph, so sessions drawn from a window
     of ids have induced edges."""
     item_i = rng.integers(1, NUM_ITEMS - 64, NUM_EDGES)
-    item_j = item_i + rng.integers(1, 65, NUM_EDGES)
-    np.savetxt(path, np.stack([item_i, item_j], 1), fmt="%d", delimiter=",",
+    return item_i, item_i + rng.integers(1, 65, NUM_EDGES)
+
+
+def make_edges(path: Path, rng: np.random.Generator) -> None:
+    np.savetxt(path, np.stack(make_edge_arrays(rng), 1), fmt="%d", delimiter=",",
                header="item_i,item_j", comments="")
 
 
@@ -426,6 +496,447 @@ def profile_requests(rec: Recommender, requests: list) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Generator) -> dict:
+    """Forward and backward at a train shape. With dropout the kernels and the
+    plain version draw the same keep bits from the same seed, so the same
+    tolerances hold. Returns the forward's row and the backward's row."""
+    dev = torch.device("cuda")
+    q, k, v, dout = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(4))
+    adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
+    adj[:, 0, :] = False  # an isolated destination in every session
+    seed = 0x5EED_0000_0000_0001 + N
+    results = []
+    for fn in (session_attention, session_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, adj, HEADS, dropout_p, seed)
+        results.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(results[0][0], results[1][0], **ATTN_TOL)
+    for got, want in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)
+    if not all(torch.all(t[:, 0] == 0) for t in results[0][:2]):
+        raise AssertionError("isolated destinations must give exact zeros, forward and dq")
+    fwd_err = (results[0][0] - results[1][0]).abs().max().item()
+    bwd_err = max((g - w).abs().max().item() for g, w in zip(results[0][1:], results[1][1:]))
+
+    d = DIM // HEADS
+    edges = int(adj.sum())
+    shape = f"B={B} N={N} H={HEADS} d={d} p={dropout_p}"
+    fwd_bound = bound_ms(4 * 4 * B * N * DIM + B * N * N, 4 * d * HEADS * edges)
+    # backward: q, k, v, dO read, dq, dk, dv written, adj read; five edge products
+    # (scores, dO.v, dV, dK, dQ) of 2*d operations each, per head
+    bwd_bound = bound_ms(7 * 4 * B * N * DIM + B * N * N, 10 * d * HEADS * edges)
+    fwd = {"shape": shape, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+    bwd = {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+
+    qh, kh, vh, doh = (t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v, dout))
+    mask = adj[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def both(fn):
+        """Forward plus backward of a differentiable attention, for the versions
+        that have no backward of their own to call."""
+        def run():
+            leaves = [t.detach().requires_grad_(True) for t in fn.inputs]
+            return torch.autograd.grad(fn(*leaves), leaves, fn.grad)
+        return run
+
+    def plain(a, b, c):
+        return session_attention_reference(a, b, c, adj, HEADS, dropout_p, seed)
+
+    def library(a, b, c):
+        return sdpa(a, b, c, attn_mask=mask, dropout_p=dropout_p)
+
+    plain.inputs, plain.grad = (q, k, v), dout
+    library.inputs, library.grad = (qh, kh, vh), doh
+    fwd.update(timings(
+        lambda: session_attention(q, k, v, adj, HEADS, dropout_p, seed),
+        lambda: plain(q, k, v),
+        lambda: library(qh, kh, vh),
+    ))
+    both_plain, both_library = device_ms(both(plain)), device_ms(both(library))
+    bwd.update({
+        "ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)),
+        # the plain and library backward: forward plus backward minus the forward
+        "plain_ms": both_plain - fwd["plain_ms"],
+        "library_ms": both_library - fwd["library_ms"],
+        "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)),
+    })
+    return {"forward": fwd, "backward": bwd}
+
+
+def _table_state(gen: torch.Generator, moment_dtype: torch.dtype):
+    dev = torch.device("cuda")
+    table = 0.05 * torch.randn(ROWS, DIM, device=dev, generator=gen)
+    mu = (1e-3 * torch.randn(ROWS, DIM, device=dev, generator=gen)).to(moment_dtype)
+    nu = (1e-6 * torch.rand(ROWS, DIM, device=dev, generator=gen)).to(moment_dtype)
+    return table, mu, nu
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def _fused_adamw_library(w, mu, nu, grad, prepare=None):
+    """torch._fused_adamw_ on the same tensors (float32 moments only), or None
+    if this PyTorch has no such call. `prepare` runs first inside the timed
+    function (the sparse case scatters its rows into the dense gradient)."""
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is None or mu.dtype != torch.float32 or nu.dtype != torch.float32:
+        return None
+    step = torch.full((), 3.0, device=w.device)
+
+    def run():
+        if prepare is not None:
+            prepare()
+        fused([w], [grad], [mu], [nu], [], [step], lr=ADAMW["lr"], beta1=ADAMW["b1"],
+              beta2=ADAMW["b2"], weight_decay=ADAMW["weight_decay"], eps=ADAMW["eps"],
+              amsgrad=False, maximize=False)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError) as e:  # a private call: its signature may differ
+        log(f"[phase 7] no library yardstick: torch._fused_adamw_ refused the call ({e})")
+        return None
+    return run
+
+
+def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool) -> dict:
+    """Full width, U = 16384 slots: 12,000 unique rows (row 0 among them, its
+    summed row zeroed as the train step does) and a sentinel tail."""
+    dev = torch.device("cuda")
+    U, n_unique = 16384, 12000
+    table, mu, nu = _table_state(gen, moment_dtype)
+    ids = torch.randperm(NUM_ITEMS - 1, device=dev, generator=gen)[: n_unique - 1] + 1
+    uid = torch.full((U,), 2**31 - 1, dtype=torch.int32, device=dev)
+    uid[:n_unique] = torch.cat([torch.zeros(1, device=dev, dtype=torch.long), ids.sort().values]).int()
+    summed = 1e-3 * torch.randn(U, DIM, device=dev, generator=gen)
+    summed[0] = 0.0
+    summed[n_unique:] = 0.0
+    got = [t.clone() for t in (table, mu, nu)]
+    want = [t.clone() for t in (table, mu, nu)]
+    for count in (1, 2, 3):
+        sparse_adamw(*got, uid, summed, count, stochastic_rounding=stochastic, **ADAMW)
+        sparse_adamw_reference(*want, uid, summed, count, stochastic_rounding=stochastic, **ADAMW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+    if not (_same_bits(got[1], want[1]) and _same_bits(got[2], want[2])):
+        raise AssertionError("sparse_adamw: the kernel's moments differ from the plain version's bits")
+    if torch.equal(got[0], table):
+        raise AssertionError("sparse_adamw: the table must move")
+    err = (got[0] - want[0]).abs().max().item()
+
+    m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
+    n_bytes = 2 * ROWS * DIM * (4 + 2 * m_bytes) + 4 * U + 4 * n_unique * DIM
+    bound, bound_by = bound_ms(n_bytes, 14 * ROWS * DIM)
+    grad = torch.zeros_like(table)
+    rows = uid[:n_unique].long()
+
+    def scatter():
+        grad.zero_()
+        grad.index_add_(0, rows, summed[:n_unique])
+
+    return {
+        "shape": f"V={ROWS} D={DIM} U={U} unique={n_unique} moments={str(moment_dtype).split('.')[-1]}"
+                 f"{'+sr' if stochastic else ''}",
+        "max_abs_err": err,
+        **timings(
+            lambda: sparse_adamw(*got, uid, summed, 3, stochastic_rounding=stochastic, **ADAMW),
+            lambda: sparse_adamw_reference(*want, uid, summed, 3, stochastic_rounding=stochastic, **ADAMW),
+            _fused_adamw_library(*[t.clone() for t in (table, mu, nu)], grad, scatter),
+            calls=10, reps=5, eager_reps=10,
+        ),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+
+
+def check_embedding_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool) -> dict:
+    dev = torch.device("cuda")
+    table, mu, nu = _table_state(gen, moment_dtype)
+    grad = 1e-3 * torch.randn(ROWS, DIM, device=dev, generator=gen)
+    grad[0] = 0.0
+    got = [t.clone() for t in (table, mu, nu)]
+    want = [t.clone() for t in (table, mu, nu)]
+    for count in (1, 2, 3):
+        embedding_adamw(*got, grad, count, stochastic_rounding=stochastic, **ADAMW)
+        embedding_adamw_reference(*want, grad, count, stochastic_rounding=stochastic, **ADAMW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+    if not (_same_bits(got[1], want[1]) and _same_bits(got[2], want[2])):
+        raise AssertionError("embedding_adamw: the kernel's moments differ from the plain version's bits")
+    err = (got[0] - want[0]).abs().max().item()
+    m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
+    n_bytes = ROWS * DIM * (3 * 4 + 4 * m_bytes)  # w and grad read, w written; mu, nu read and written
+    bound, bound_by = bound_ms(n_bytes, 16 * ROWS * DIM)
+    return {
+        "shape": f"V={ROWS} D={DIM} moments={str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}",
+        "max_abs_err": err,
+        **timings(
+            lambda: embedding_adamw(*got, grad, 3, stochastic_rounding=stochastic, **ADAMW),
+            lambda: embedding_adamw_reference(*want, grad, 3, stochastic_rounding=stochastic, **ADAMW),
+            _fused_adamw_library(*[t.clone() for t in (table, mu, nu)], grad),
+            calls=10, reps=5, eager_reps=10,
+        ),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the training slice at full width
+# ---------------------------------------------------------------------------
+
+
+def make_dataset(rng: np.random.Generator) -> SessionDataset:
+    """Seeded synthetic sessions: heavy small-session skew (geometric lengths,
+    3..50 events) plus some long ones so that every node bucket fills, items
+    drawn from a window of nearby ids so that the graph's edges are induced."""
+    lengths = np.clip(rng.geometric(0.25, NUM_SESSIONS) + 2, 3, 50)
+    lengths[: NUM_SESSIONS // 4] = rng.integers(12, 51, NUM_SESSIONS // 4)
+    total = int(lengths.sum())
+    sid = np.repeat(np.arange(NUM_SESSIONS), lengths)
+    start = np.repeat(rng.integers(1, NUM_ITEMS - 200, NUM_SESSIONS), lengths)
+    items = start + rng.integers(0, 120, total)
+    return SessionDataset(
+        (sid, np.arange(total), items), make_edge_arrays(rng),
+        num_negatives=NEGATIVES, num_items=NUM_ITEMS,
+    )
+
+
+def make_training_model(dropout: float, device=None):
+    """The optimized Graph Transformer at full width, seeded; on the card unless told otherwise."""
+    dev = torch.device("cuda" if device is None else device)
+    gen = torch.Generator(dev).manual_seed(0)
+    model = create_model("graph_transformer_optimized", NUM_ITEMS, dropout=dropout, device=device,
+                         generator=gen)
+    with torch.no_grad():
+        model.cached_pe.normal_(generator=gen)
+        model.cached_pe[NUM_ITEMS:] = 0.0
+    return model
+
+
+def launch_counts() -> dict:
+    return {
+        "session_attention": session_attention.launches,
+        "session_attention_backward": session_attention.backward_launches,
+        "score_chunkmax": score_chunkmax.launches,
+        "sparse_adamw": sparse_adamw.launches,
+        "embedding_adamw": embedding_adamw.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    session_attention.launches = session_attention.backward_launches = 0
+    score_chunkmax.launches = sparse_adamw.launches = embedding_adamw.launches = 0
+
+
+def expect_launches(what: str, **want) -> dict:
+    got = launch_counts()
+    want = {**dict.fromkeys(got, 0), **want}
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got}, want {want}")
+    return got
+
+
+def near_tie_agree(got, want, tol: float) -> None:
+    """Top-k (scores, ids) of two exact selectors: scores within tol; ids equal
+    except where neighbouring oracle scores tie within tol."""
+    (g_s, g_i), (w_s, w_i) = got, want
+    if (g_s - w_s).abs().max().item() > tol:
+        raise AssertionError("eval top-k scores differ from the dense oracle's")
+    gap = (w_s[:, :-1] - w_s[:, 1:]).abs() <= tol
+    pad = torch.zeros_like(gap[:, :1])
+    tied = torch.cat([gap, pad], 1) | torch.cat([pad, gap], 1)
+    if bool(((g_i != w_i) & ~tied).any()):
+        raise AssertionError("eval top-k ids differ from the dense oracle's without a near-tie")
+
+
+def train_full_width() -> dict:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    dataset = make_dataset(rng)
+    batches = list(iterate_batches(dataset, TRAIN_BATCH, shuffle=True, seed=0))
+    by_bucket = {n: [b for b in batches if b.nodes_per_session == n] for n in BUCKETS}
+    if not all(by_bucket.values()):
+        raise AssertionError(f"batches cover buckets {[n for n in BUCKETS if by_bucket[n]]}, want {BUCKETS}")
+    log(f"[phase 8] {len(dataset)} sessions, {len(batches)} batches of {TRAIN_BATCH} "
+        f"({ {n: len(v) for n, v in by_bucket.items()} }) assembled in {time.perf_counter() - t0:.1f} s")
+    epoch = [by_bucket[n][0] for n in BUCKETS] + [by_bucket[8][-1], by_bucket[16][-1]]
+    loss_fn = create_loss_function("dual")
+    model = make_training_model(DROPOUT)
+    if model.item_embedding.device.type != "cuda":
+        raise AssertionError("create_model without a device must allocate on the card")
+    torch.cuda.synchronize()
+
+    # The counted main path: Trainer epoch (sparse), repeated-batch steps, dense
+    # Trainer epoch, evaluation.
+    reset_launch_counts()
+    trainer = Trainer(model, lambda e: iter(epoch), lambda: iter([by_bucket[56][0]]),
+                      loss_fn=loss_fn, seed=7, sparse_embedding_grads=True)
+    opt_state = trainer.init_state(reset_parameters=False)
+    t0 = time.perf_counter()
+    epoch_loss = trainer.train_epoch()
+    epoch_s = time.perf_counter() - t0
+    if not np.isfinite(epoch_loss):
+        raise AssertionError(f"sparse epoch loss {epoch_loss}")
+    n_sparse = len(epoch)
+    expect_launches("sparse Trainer epoch", session_attention=2 * n_sparse,
+                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse)
+
+    step = make_sparse_train_step(model, loss_fn, trainer.optimizer, opt_state)
+    repeated = to_device((by_bucket[16][0], make_grad_index(by_bucket[16][0])), dev)
+    losses = [step(repeated, seed=100 + i).item() for i in range(6)]
+    if not all(np.isfinite(losses)) or not losses[5] < losses[0]:
+        raise AssertionError(f"repeated-batch losses must be finite and fall: {losses}")
+    n_sparse += 6
+    expect_launches("sparse steps", session_attention=2 * n_sparse,
+                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse)
+
+    dense = Trainer(model, lambda e: iter([by_bucket[8][0], by_bucket[56][0]]), lambda: iter(()),
+                    optimizer=trainer.optimizer, loss_fn=loss_fn, seed=7)
+    dense.init_state(reset_parameters=False, opt_state=opt_state)  # the same moments and count
+    dense_loss = dense.train_epoch()
+    if not np.isfinite(dense_loss) or opt_state["count"] != n_sparse + 2:
+        raise AssertionError(f"dense epoch loss {dense_loss}, count {opt_state['count']}")
+    expect_launches("sparse and dense steps", session_attention=2 * (n_sparse + 2),
+                    session_attention_backward=2 * (n_sparse + 2), sparse_adamw=n_sparse,
+                    embedding_adamw=2)
+
+    metrics = trainer.evaluate()
+    if set(metrics) != {"recall@10", "ndcg@10", "recall@20", "ndcg@20"} or not all(
+        np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()
+    ):
+        raise AssertionError(f"evaluate: {metrics}")
+    launches = expect_launches(
+        "training and one eval batch", session_attention=2 * (n_sparse + 2) + 2,
+        session_attention_backward=2 * (n_sparse + 2), sparse_adamw=n_sparse, embedding_adamw=2,
+        score_chunkmax=1)
+
+    # Outside the counted path: the eval step against the dense oracle.
+    eval_batch = to_device(by_bucket[56][0], dev)
+    ids = make_eval_step(model, 20)(eval_batch)
+    with torch.no_grad():
+        sess = model.eval()(eval_batch)
+        table = model.item_embedding
+        two_level = full_catalog_topk(sess, table, 20, NUM_ITEMS)
+        oracle = dense_topk(sess, table, 20, NUM_ITEMS)
+    if not torch.equal(ids, two_level[1]) or ids.shape != (TRAIN_BATCH, 20):
+        raise AssertionError("eval step ids differ from full_catalog_topk's")
+    near_tie_agree(two_level, oracle, tol=1e-6)
+    if not (bool(torch.isfinite(sess).all()) and int(ids.min()) >= 0 and int(ids.max()) < NUM_ITEMS):
+        raise AssertionError("eval: session embeddings must be finite, ids inside the catalog")
+
+    return {
+        "sparse_steps": n_sparse, "dense_steps": 2, "eval_batches": 1,
+        "launches": launches,
+        "epoch_loss": epoch_loss, "repeated_batch_losses": losses, "dense_loss": dense_loss,
+        "metrics": metrics,
+        "sparse_epoch_wall_ms_per_step": epoch_s * 1e3 / len(epoch),
+        "cpu_copy": compare_with_cpu_copy([by_bucket[16][0], by_bucket[56][0]], loss_fn),
+        "profile": profile_training(model, loss_fn, trainer.optimizer, opt_state, by_bucket, epoch),
+    }
+
+
+def compare_with_cpu_copy(batches: list, loss_fn) -> dict:
+    """Dropout 0: two sparse steps on the card against the same steps of a CPU
+    copy of the port (the plain versions), from the same weights."""
+    card = make_training_model(0.0)
+    cpu = make_training_model(0.0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    out = {"loss_diff": 0.0, "row_diff_max": 0.0, "row_diff_q9999": 0.0, "bn_diff": 0.0}
+    steps = []
+    for model in (card, cpu):
+        opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)
+        steps.append(make_sparse_train_step(model, loss_fn, opt, opt.init(model)))
+    for i, batch in enumerate(batches):
+        gidx = make_grad_index(batch)
+        device = next(card.parameters()).device
+        got = steps[0](to_device((batch, gidx), device), seed=i).item()
+        want = steps[1]((batch, to_device(gidx, "cpu")), seed=i).item()
+        rows = torch.from_numpy(gidx.uid[gidx.uid != 2**31 - 1].astype(np.int64))
+        out["loss_diff"] = max(out["loss_diff"], abs(got - want))
+        diff = (
+            card.item_embedding.detach()[rows.to(device)].cpu() - cpu.item_embedding.detach()[rows]
+        ).abs().flatten()
+        q9999 = diff.kthvalue(max(1, int(0.9999 * diff.numel()))).values.item()
+        out["row_diff_max"] = max(out["row_diff_max"], diff.max().item())
+        out["row_diff_q9999"] = max(out["row_diff_q9999"], q9999)
+    for a, b in zip(card.batch_norms, cpu.batch_norms):
+        for name in ("mean", "var"):
+            out["bn_diff"] = max(out["bn_diff"], (getattr(a, name).cpu() - getattr(b, name)).abs().max().item())
+    if (out["loss_diff"] > TRAIN_LOSS_TOL or out["row_diff_q9999"] > TRAIN_ROW_TOL
+            or out["row_diff_max"] > TRAIN_ROW_CAP or out["bn_diff"] > TRAIN_ROW_TOL):
+        raise AssertionError(f"card and CPU copy of the train step differ: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: where a train step's time goes
+# ---------------------------------------------------------------------------
+
+
+def profile_training(model, loss_fn, optimizer, opt_state, by_bucket: dict, epoch: list) -> dict:
+    """Sparse train steps at B=512, N=56, batches already on the card: the
+    wall time per step (unprofiled, one synchronise at the end), and from a
+    torch.profiler trace of the same steps the card's busy time and its
+    kernels by device time. Idle share = 1 - busy / wall. Beside it the dense
+    step's and the N=8 step's wall, and a warm Trainer epoch over `epoch`
+    (host batches: index, pinning and copies included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    sparse = make_sparse_train_step(model, loss_fn, optimizer, opt_state)
+    dense = make_train_step(model, loss_fn, optimizer, opt_state)
+    on_card = {n: to_device((by_bucket[n][0], make_grad_index(by_bucket[n][0])), dev) for n in (8, 56)}
+
+    def wall_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    walls = {
+        "sparse_step_wall_ms_n56": wall_ms(lambda: sparse(on_card[56], seed=1)),
+        "sparse_step_wall_ms_n8": wall_ms(lambda: sparse(on_card[8], seed=1)),
+        "dense_step_wall_ms_n56": wall_ms(lambda: dense(on_card[56][0], seed=1)),
+    }
+    warm = Trainer(model, lambda e: iter(epoch), lambda: iter(()), optimizer=optimizer,
+                   loss_fn=loss_fn, sparse_embedding_grads=True)
+    warm.init_state(reset_parameters=False, opt_state=opt_state)
+    walls["trainer_epoch_wall_ms_per_step"] = wall_ms(warm.train_epoch, n=2) / len(epoch)
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            sparse(on_card[56], seed=i)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        **walls,
+        "sessions_per_s_n56": TRAIN_BATCH / walls["sparse_step_wall_ms_n56"] * 1e3,
+        "device_busy_ms_per_sparse_step": busy_ms if rows else "not measured",
+        "device_idle_share": 1.0 - busy_ms / walls["sparse_step_wall_ms_n56"] if rows else "not measured",
+        "device_ops_per_sparse_step": sum(e.count for e in rows) / steps,
+        "top_device_ms_per_sparse_step": {
+            e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top
+        },
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -478,18 +989,57 @@ def main() -> int:
     log(f"[phase 6] {json.dumps(profiled)}")
 
     # Phase 7
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    train_attn = {}
+    for N in (8, 56):
+        for p_drop in (0.0, DROPOUT):
+            train_attn[(N, p_drop)] = check_attention_training(TRAIN_BATCH, N, p_drop, gen)
+            for part, row in train_attn[(N, p_drop)].items():
+                log(f"[phase 7] session_attention {part} {json.dumps(row)}")
+    adamw = {}
+    for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
+        adamw[("sparse_adamw", label)] = check_sparse_adamw(gen, dtype, stochastic)
+        log(f"[phase 7] sparse_adamw {json.dumps(adamw[('sparse_adamw', label)])}")
+        adamw[("embedding_adamw", label)] = check_embedding_adamw(gen, dtype, stochastic)
+        log(f"[phase 7] embedding_adamw {json.dumps(adamw[('embedding_adamw', label)])}")
+        torch.cuda.empty_cache()
+    score_eval = check_scoring(gen, B=TRAIN_BATCH)
+    log(f"[phase 7] score_chunkmax {json.dumps(score_eval)}")
+    torch.cuda.empty_cache()
+
+    # Phase 8
+    trained = train_full_width()
+    train_profile = trained.pop("profile")
+    log(f"[phase 8] {json.dumps(trained)}")
+    train_launches = trained["launches"]
+
+    # Phase 9
+    log(f"[phase 9] {json.dumps(train_profile)}")
+
+    # Phase 10: one row per kernel and path, every key in every row.
     kernels = []
-    for name, row, source in (
-        ("session_attention", attn[(1, 56)], "gat_recommendation_torch/csrc/session_attention.cu"),
-        ("score_chunkmax", score, "gat_recommendation_torch/csrc/score_chunkmax.cu"),
+    for name, path, row, count in (
+        ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
+        ("score_chunkmax", "serving", score, launches["score_chunkmax"]),
+        ("session_attention", "training", train_attn[(56, DROPOUT)]["forward"],
+         train_launches["session_attention"]),
+        ("session_attention_backward", "training", train_attn[(56, DROPOUT)]["backward"],
+         train_launches["session_attention_backward"]),
+        ("score_chunkmax", "training", score_eval, train_launches["score_chunkmax"]),
+        ("sparse_adamw", "training", adamw[("sparse_adamw", "f32")], train_launches["sparse_adamw"]),
+        ("embedding_adamw", "training", adamw[("embedding_adamw", "f32")],
+         train_launches["embedding_adamw"]),
     ):
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the {path} path")
         kernels.append({
             "name": name,
+            "path": path,
             "route": "cuda",
-            "source": source,
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
             "shape": row["shape"],
-            "launches": launches[name],
+            "launches": count,
             "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"],
             "ms": row["ms"],

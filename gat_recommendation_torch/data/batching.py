@@ -4,13 +4,22 @@ The host side is numpy, as in the JAX package's ``data/batching.py``: the
 co-occurrence graph is pre-indexed as CSR adjacency, and each session's
 induced subgraph becomes a dense boolean adjacency ``adj[b, dst, src]`` over
 the bucket's node slots. ``SessionBatch`` holds the torch tensors one forward
-pass reads. The bit-packed transfer form of the adjacency, the dataset and
-the training iterators land with the training slice.
+pass reads, plus the targets, negatives and sample mask when training.
+``SessionDataset`` pre-indexes the sessions (numpy and the csv module only),
+``iterate_batches`` yields one epoch of host batches (the numpy engine), and
+``make_grad_index`` builds the duplicate-row index of the sparse train step on
+the host. ``to_device`` copies a batch and its index to the card from pinned
+memory without blocking. The bit-packed transfer form of the adjacency, the
+stacking of batches into chains and the C++ assembly engine are not ported
+yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,23 +40,42 @@ def pick_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
 
 @dataclasses.dataclass
 class SessionBatch:
-    """One fixed-shape batch of padded session graphs (forward-pass fields).
+    """One fixed-shape batch of padded session graphs.
 
-    node_ids  [B, N] int32 — global item ids, ascending per session, 0-padded
-    node_mask [B, N] bool  — valid node slots
-    adj       [B, N, N] bool — adj[b, dst, src] = edge src->dst (local ids)
-    num_nodes [B] int32    — valid node count per session
+    node_ids    [B, N] int32 — global item ids, ascending per session, 0-padded
+    node_mask   [B, N] bool  — valid node slots
+    adj         [B, N, N] bool — adj[b, dst, src] = edge src->dst (local ids)
+    num_nodes   [B] int32    — valid node count per session
+    targets     [B] int32    — next-item label (last session event)
+    negatives   [B, K] int32 — sampled negative item ids
+    sample_mask [B] bool     — valid samples (False = batch padding slot)
+
+    The last three are None when serving.
     """
 
     node_ids: torch.Tensor
     node_mask: torch.Tensor
     adj: torch.Tensor
     num_nodes: torch.Tensor
+    targets: torch.Tensor | None = None
+    negatives: torch.Tensor | None = None
+    sample_mask: torch.Tensor | None = None
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.node_ids.shape[0])
+
+    @property
+    def nodes_per_session(self) -> int:
+        return int(self.node_ids.shape[1])
+
+    def map(self, fn) -> "SessionBatch":
+        """A batch of `fn(tensor)` for every field that is set."""
+        fields = (getattr(self, f.name) for f in dataclasses.fields(self))
+        return SessionBatch(*(None if t is None else fn(t) for t in fields))
 
     def to(self, device) -> "SessionBatch":
-        return SessionBatch(
-            *(getattr(self, f.name).to(device) for f in dataclasses.fields(self))
-        )
+        return self.map(lambda t: t.to(device))
 
 
 @dataclasses.dataclass
@@ -98,3 +126,334 @@ def induced_edges(graph: CSRGraph, nodes) -> tuple[np.ndarray, np.ndarray]:
     pos = np.searchsorted(nodes, dst_items)
     ok = (pos < len(nodes)) & (nodes[np.minimum(pos, len(nodes) - 1)] == dst_items)
     return src_local[ok], pos[ok].astype(np.int32)
+
+
+def sample_negatives(rng: np.random.Generator, exclude, num_items: int, k: int) -> np.ndarray:
+    """k negatives from [1, num_items) excluding `exclude` (rejection sampling;
+    duplicates among negatives allowed).
+
+    Termination guard: when the candidate range is empty (num_items <= 1) or
+    the session covers nearly the whole catalog (tiny test datasets),
+    rejection sampling cannot terminate; after a bounded number of rounds
+    in-session negatives are allowed rather than looping forever."""
+    out = np.empty(k, dtype=np.int32)
+    if num_items <= 1:
+        out[:] = 0  # no valid candidate range; padding id (masked downstream)
+        return out
+    got = 0
+    for _ in range(64):  # bounded rounds; ~certain success unless exclude ≈ catalog
+        cands = rng.integers(1, num_items, size=max(2 * (k - got), 8))
+        for c in cands:
+            if int(c) not in exclude:
+                out[got] = c
+                got += 1
+                if got == k:
+                    return out
+    # Degenerate catalog: permit in-session negatives.
+    out[got:] = rng.integers(1, num_items, size=k - got)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dataset
+# ---------------------------------------------------------------------------
+
+
+def _read_sessions_csv(path) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(session_id, timestamp, itemid) columns of a CSV with those headers.
+    Ids that are all integers become int64; other session ids stay strings,
+    other timestamps become float64."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        cols = [header.index(name) for name in ("session_id", "timestamp", "itemid")]
+        rows = [[row[c] for c in cols] for row in reader]
+    sid, ts, item = (np.array(col) for col in zip(*rows)) if rows else (np.zeros(0, str),) * 3
+
+    def numeric(a, fallback):
+        try:
+            return a.astype(np.int64)
+        except ValueError:
+            return fallback(a)
+
+    return numeric(sid, lambda a: a), numeric(ts, lambda a: a.astype(np.float64)), item.astype(np.int64)
+
+
+class SessionDataset:
+    """Pre-indexed sessions plus the CSR graph.
+
+    sessions: a CSV path with columns session_id/timestamp/itemid, or the
+    three columns as arrays: a ``(session_id, timestamp, itemid)`` tuple or a
+    mapping with those keys (no DataFrame needed).
+    edges: (item_i, item_j) arrays (from ``data.graph.load_edges``).
+    Sessions are ordered by sorted session_id; each is time-sorted (a stable
+    sort, so events with equal timestamps keep their order) and truncated to
+    the LAST max_session_length events.
+    """
+
+    def __init__(
+        self,
+        sessions,
+        edges: tuple,
+        num_negatives: int = 5,
+        max_session_length: int = 50,
+        num_items: int | None = None,
+    ):
+        if isinstance(sessions, (str, Path)):
+            sid, ts, item = _read_sessions_csv(sessions)
+        elif isinstance(sessions, tuple):
+            sid, ts, item = (np.asarray(a) for a in sessions)
+        else:
+            sid, ts, item = (np.asarray(sessions[k]) for k in ("session_id", "timestamp", "itemid"))
+        self.num_negatives = num_negatives
+        self.max_session_length = max_session_length
+
+        # Sorted unique session ids and each event's session code; then a stable
+        # sort by (session, timestamp).
+        self.session_ids, codes = np.unique(sid, return_inverse=True)
+        order = np.lexsort((ts, codes))
+        codes = codes[order]
+        items_all = item[order].astype(np.int64)
+        counts = np.bincount(codes, minlength=len(self.session_ids))
+        ends_all = np.cumsum(counts)
+        starts_all = ends_all - counts
+
+        # Truncate to the last max_session_length events (vectorized).
+        keep_len = np.minimum(counts, max_session_length)
+        pos = np.arange(len(items_all)) - starts_all[codes]
+        keep = pos >= (counts - keep_len)[codes]
+        self.items = items_all[keep]
+        self.offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+        np.cumsum(keep_len, out=self.offsets[1:])
+
+        item_i, item_j = edges
+        item_i = np.asarray(item_i, dtype=np.int64)
+        item_j = np.asarray(item_j, dtype=np.int64)
+        if num_items is None:
+            # Raw max id + 1 across sessions and edges, NOT the count of
+            # connected nodes.
+            num_items = int(
+                max(items_all.max(initial=0), item_i.max(initial=0), item_j.max(initial=0))
+            ) + 1
+        self.num_items = num_items
+        self.graph = build_csr(item_i, item_j, num_items)
+
+        # Per-session unique-context-node counts (bucket assignment),
+        # vectorized: lexsort (session, item) then count segment-uniques.
+        ctx_sess = np.repeat(np.arange(len(counts)), np.maximum(keep_len - 1, 0))
+        last_of = self.offsets[1:] - 1
+        ctx_mask = np.ones(len(self.items), dtype=bool)
+        ctx_mask[last_of[keep_len > 0]] = False
+        ctx_items = self.items[ctx_mask]
+        if len(ctx_items):
+            order = np.lexsort((ctx_items, ctx_sess))
+            s, it = ctx_sess[order], ctx_items[order]
+            new = np.ones(len(s), dtype=bool)
+            new[1:] = (s[1:] != s[:-1]) | (it[1:] != it[:-1])
+            self.unique_counts = np.bincount(s[new], minlength=len(counts)).astype(np.int32)
+        else:
+            self.unique_counts = np.zeros(len(counts), dtype=np.int32)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def session_items(self, idx: int) -> np.ndarray:
+        """Time-ordered (truncated) item ids of session `idx`."""
+        return self.items[self.offsets[idx] : self.offsets[idx + 1]]
+
+    def sample(self, idx: int, rng: np.random.Generator) -> dict:
+        """One training sample: sorted-unique context nodes, induced local
+        edges, last event as target, rejection-sampled negatives."""
+        items = self.session_items(idx)
+        target = int(items[-1])
+        nodes = np.unique(items[:-1])
+        src, dst = induced_edges(self.graph, nodes)
+        negatives = sample_negatives(rng, set(items.tolist()), self.num_items, self.num_negatives)
+        return {
+            "nodes": nodes.astype(np.int32),
+            "edge_src": src,
+            "edge_dst": dst,
+            "target": target,
+            "negatives": negatives,
+        }
+
+
+# ---------------------------------------------------------------------------
+# Collate + epoch iteration
+# ---------------------------------------------------------------------------
+
+
+def collate(samples: list, bucket_n: int, num_negatives: int) -> SessionBatch:
+    """Assemble fixed-shape host tensors from per-session samples (None =
+    padding slot). Nodes beyond bucket_n are truncated with their edges
+    dropped (never triggered at max_session_length=50 with the default
+    buckets). The tensors share memory with the numpy arrays built here."""
+    B = len(samples)
+    node_ids = np.zeros((B, bucket_n), dtype=np.int32)
+    node_mask = np.zeros((B, bucket_n), dtype=bool)
+    adj = np.zeros((B, bucket_n, bucket_n), dtype=bool)
+    num_nodes = np.zeros(B, dtype=np.int32)
+    targets = np.zeros(B, dtype=np.int32)
+    negatives = np.zeros((B, num_negatives), dtype=np.int32)
+    sample_mask = np.zeros(B, dtype=bool)
+
+    for b, s in enumerate(samples):
+        if s is None:
+            continue
+        nodes = np.asarray(s["nodes"])[:bucket_n]
+        n = len(nodes)
+        node_ids[b, :n] = nodes
+        node_mask[b, :n] = True
+        num_nodes[b] = n
+        src = np.asarray(s["edge_src"])
+        dst = np.asarray(s["edge_dst"])
+        if len(src):
+            ok = (src < n) & (dst < n)
+            adj[b, dst[ok], src[ok]] = True
+        targets[b] = s["target"]
+        negatives[b] = np.asarray(s["negatives"])[:num_negatives]
+        sample_mask[b] = True
+
+    return SessionBatch(
+        *(
+            torch.from_numpy(a)
+            for a in (node_ids, node_mask, adj, num_nodes, targets, negatives, sample_mask)
+        )
+    )
+
+
+# Sentinel for unused uid slots: out of range of any table, so the sparse
+# AdamW update never finds a row for it.
+UID_SENTINEL = np.int32(2**31 - 1)
+
+# The unique-row count is bucketed so that the summed-gradient buffer takes
+# few distinct shapes per (batch shape, bucket) pair.
+UNIQUE_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
+class GradIndex(NamedTuple):
+    """Host-precomputed index for sparse embedding gradients.
+
+    The sparse train step differentiates with respect to the gathered
+    embedding rows only; turning those row gradients into per-unique-id sums
+    needs a sort, done here on the host where the ids already sit in the
+    batch. Fields (R = B*(N+1+K), U = unique-count bucket):
+
+    ids     [R] int32 — concat(node_ids.flat, targets, negatives.flat)
+    perm    [R] int32 — stable argsort of ids
+    seg     [R] int32 — segment number of each sorted slot (equal ids share one)
+    uid     [U] int32 — ascending unique ids, UID_SENTINEL-padded tail (U >= uniques)
+    lengths [U] int64 — slots per segment (0 for the sentinel tail); the
+            deterministic sorted segment sum of the train step reads it
+    """
+
+    ids: np.ndarray
+    perm: np.ndarray
+    seg: np.ndarray
+    uid: np.ndarray
+    lengths: np.ndarray
+
+
+def make_grad_index(batch: SessionBatch) -> GradIndex:
+    """Build the sparse-gradient index on the host (numpy) from a host batch."""
+    ids = np.concatenate(
+        [
+            np.asarray(batch.node_ids).reshape(-1),
+            np.asarray(batch.targets),
+            np.asarray(batch.negatives).reshape(-1),
+        ]
+    ).astype(np.int32)
+    return make_grad_index_from_ids(ids)
+
+
+def make_grad_index_from_ids(ids: np.ndarray) -> GradIndex:
+    """GradIndex from a raw id list."""
+    ids = np.asarray(ids, dtype=np.int32)
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    sid = ids[perm]
+    is_new = np.ones(len(sid), dtype=bool)
+    is_new[1:] = sid[1:] != sid[:-1]
+    seg = (np.cumsum(is_new) - 1).astype(np.int32)
+    num_unique = int(seg[-1]) + 1 if len(seg) else 0
+    U = next((b for b in UNIQUE_BUCKETS if num_unique <= b), len(ids))
+    U = min(U, len(ids)) if len(ids) else 1
+    uid = np.full(U, UID_SENTINEL, np.int32)
+    uid[seg] = sid  # ascending uniques (sid is sorted), sentinel tail
+    lengths = np.bincount(seg, minlength=U).astype(np.int64)
+    return GradIndex(ids=ids, perm=perm, seg=seg, uid=uid, lengths=lengths)
+
+
+def to_device(item, device):
+    """Copy a host ``SessionBatch``, a ``GradIndex`` (numpy fields) or a tuple
+    of them to `device`. Towards a CUDA device the host tensors are pinned
+    first and the copies do not block the host (``non_blocking=True``); they
+    are ordered on the current stream before any kernel that reads them."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def move(t: torch.Tensor) -> torch.Tensor:
+        if on_card and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=on_card)
+
+    if isinstance(item, GradIndex):
+        return GradIndex(*(move(torch.from_numpy(np.ascontiguousarray(a))) for a in item))
+    if isinstance(item, SessionBatch):
+        return item.map(move)
+    if isinstance(item, tuple):
+        return tuple(to_device(part, device) for part in item)
+    raise TypeError(f"to_device takes a SessionBatch, a GradIndex or a tuple of them, got {type(item)}")
+
+
+def _slot_rng(seed: int, batch_index: int, gslot: int) -> np.random.Generator:
+    """Negatives are keyed by (seed, batch_index, slot): a PCG substream per
+    slot, so a batch's content never depends on the order of assembly."""
+    return np.random.default_rng([seed, batch_index, gslot])
+
+
+def iterate_batches(
+    dataset: SessionDataset,
+    batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    engine: str = "numpy",
+    buckets=DEFAULT_BUCKETS,
+):
+    """Yield host SessionBatches covering one epoch.
+
+    Sessions are grouped by node-count bucket (ascending bucket order, each
+    bucket's sessions in epoch-shuffled order); every batch has exactly
+    `batch_size` slots, remainders padded with masked samples. Only the numpy
+    engine is ported (``engine`` "numpy" or "auto"); every batch's content is
+    a pure function of (seed, batch_index, slot).
+    """
+    if engine == "native":
+        raise NotImplementedError(
+            "the C++ batch assembly engine is not ported yet (ROADMAP.md, queue A); use engine='numpy'"
+        )
+    if engine not in ("numpy", "auto"):
+        raise ValueError(f"Unknown batching engine: {engine}")
+    # Invariant: a session truncated to max_session_length events has at most
+    # max_session_length - 1 unique context nodes; the largest bucket must
+    # hold them or `collate` would silently drop nodes (and their edges).
+    need = max(int(dataset.max_session_length) - 1, 1)
+    if buckets[-1] < need:
+        buckets = tuple(buckets) + (-(-need // 8) * 8,)
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(dataset)) if shuffle else np.arange(len(dataset))
+
+    by_bucket: dict[int, list[int]] = {b: [] for b in buckets}
+    for i in order:
+        by_bucket[pick_bucket(int(dataset.unique_counts[i]), buckets)].append(int(i))
+
+    batch_index = 0
+    for bucket_n in buckets:
+        idxs = by_bucket[bucket_n]
+        for lo in range(0, len(idxs), batch_size):
+            chunk = idxs[lo : lo + batch_size]
+            samples = [
+                dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)
+            ]
+            samples += [None] * (batch_size - len(chunk))
+            yield collate(samples, bucket_n, dataset.num_negatives)
+            batch_index += 1

@@ -1,9 +1,10 @@
 """Graph Transformer with Laplacian PE (the optimized variant is the serving model).
 
 item emb (+ projected LapPE) -> num_layers x (TransformerConv(beta gate) ->
-masked BatchNorm -> additive residual) -> session readout. Eval mode only in
-this slice: the train-mode forward (dropout, attention dropout, running
-statistics) and the FFN branch arrive with the training slice.
+masked BatchNorm -> additive residual -> dropout) -> session readout. In train
+mode (``model.train()``) the BatchNorm layers use batch statistics and update
+their running buffers in place, and both dropouts are active, keyed by the
+`seed` the caller passes. The FFN branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import torch
 from torch import nn
 
 from gat_recommendation_torch.data.batching import SessionBatch
+from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.models import base
 from gat_recommendation_torch.models.layers import TransformerConv
-from gat_recommendation_torch.ops.masked import masked_batch_norm
+from gat_recommendation_torch.ops.masked import dropout, masked_batch_norm
+from gat_recommendation_torch.ops.rounding import mix_seed
 
 
 @dataclass(frozen=True)
@@ -49,6 +52,14 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(dim, device=device))
         self.register_buffer("count", torch.zeros((), device=device))
 
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+        self.count.zero_()
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return masked_batch_norm(
             self.scale, self.bias, self.mean, self.var, self.count, x, mask, self.training
@@ -58,9 +69,10 @@ class MaskedBatchNorm(nn.Module):
 class GraphTransformer(nn.Module):
     """The Graph Transformer as an ``nn.Module`` with ``name`` and ``config``.
 
-    Parameters are allocated on `device` and drawn from `generator` (a
-    ``torch.Generator`` on that device; seed 0 when omitted). On the "meta"
-    device nothing is drawn: load real tensors with
+    Parameters are allocated on `device` (``cuda`` when None, which raises
+    without a CUDA device; the CPU only for ``device="cpu"``) and drawn from
+    `generator` (a ``torch.Generator`` on that device; seed 0 when omitted).
+    On the "meta" device nothing is drawn: load real tensors with
     ``load_state_dict(..., assign=True)``, as the serving checkpoint loader does.
     """
 
@@ -79,8 +91,10 @@ class GraphTransformer(nn.Module):
             )
         if cfg.readout_type not in base.READOUT_TYPES:
             raise ValueError(f"Unknown readout type: {cfg.readout_type}")
+        device = resolve_device(device)
         self.name = name
         self.config = cfg
+        self._dropout_generator: torch.Generator | None = None
         rows = base.padded_rows(cfg.num_items)
         self.item_embedding = nn.Parameter(torch.empty(rows, cfg.embedding_dim, device=device))
         self.readout = (
@@ -110,25 +124,45 @@ class GraphTransformer(nn.Module):
             base.init_xavier_linear(self.readout, generator)
         if self.lap_projection is not None:
             base.init_xavier_linear(self.lap_projection, generator)
-        for conv in self.convs:
+        for conv, bn in zip(self.convs, self.batch_norms):
             conv.reset_parameters(generator)
+            bn.reset_parameters()
 
-    def forward(self, batch: SessionBatch) -> torch.Tensor:
-        """Eval-mode forward. Returns session embeddings [B, hidden_dim]."""
-        if self.training:
-            raise NotImplementedError(
-                "the train-mode forward is not ported yet (ROADMAP.md, queue A); call .eval()"
-            )
-        x = self.item_embedding[batch.node_ids]  # [B, N, D]
+    def forward(
+        self,
+        batch: SessionBatch,
+        node_embeddings: torch.Tensor | None = None,
+        seed: int | None = None,
+    ) -> torch.Tensor:
+        """Session embeddings [B, hidden_dim]; train or eval by ``self.training``.
+
+        `node_embeddings` ([B, N, D]) replaces the table lookup of
+        ``batch.node_ids``: the sparse train step gathers every row it touches
+        once and differentiates with respect to the rows. `seed` keys the
+        train-mode randomness (0 when omitted): each layer derives from it the
+        seed of its attention dropout and the seed of the generator that
+        draws its node dropout.
+        """
+        rate = self.config.dropout if self.training else 0.0
+        seed = 0 if seed is None else seed
+        x = self.item_embedding[batch.node_ids] if node_embeddings is None else node_embeddings
         if self.lap_projection is not None:
             x = x + self.lap_projection(self.cached_pe[batch.node_ids])
-        for conv, bn in zip(self.convs, self.batch_norms):
+        for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             residual = x
-            x = bn(conv(x, batch.adj), batch.node_mask)
-            x = x + residual
+            x = conv(x, batch.adj, rate, mix_seed(seed, layer, 0) if rate > 0.0 else None)
+            x = bn(x, batch.node_mask) + residual
+            if rate > 0.0:
+                x = dropout(x, rate, True, self._node_dropout_generator(x.device, seed, layer))
         return base.apply_readout(
             self.readout, x, batch.node_mask, batch.num_nodes, self.config.readout_type
         )
+
+    def _node_dropout_generator(self, device, seed: int, layer: int) -> torch.Generator:
+        gen = self._dropout_generator
+        if gen is None or gen.device != device:
+            gen = self._dropout_generator = torch.Generator(device)
+        return gen.manual_seed(mix_seed(seed, layer, 1) & (2**63 - 1))
 
 
 def create_graph_transformer(num_items: int, *, device=None, generator=None, **kwargs):

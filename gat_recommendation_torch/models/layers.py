@@ -3,8 +3,8 @@
 The math of PyG ``TransformerConv(in, out//H, heads=H, concat=True,
 beta=True)`` on the fixed-shape node tensor with a per-session adjacency
 ``adj[b, dst, src]``: attention rows are destinations and the softmax runs
-over sources. The attention core is ``ops/session_attention.py`` (a CUDA
-kernel on the card).
+over sources. The attention core is ``ops/session_attention.py`` (CUDA
+kernels on the card, forward and backward, with attention dropout).
 """
 
 from __future__ import annotations
@@ -35,9 +35,14 @@ class TransformerConv(nn.Module):
         for layer in (self.query, self.key, self.value, self.skip, self.beta):
             init_torch_linear(layer, generator)
 
-    def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        """x: [B, N, in]; adj: [B, N, N] bool. Returns [B, N, heads*head_dim]."""
-        out = session_attention(self.query(x), self.key(x), self.value(x), adj, self.heads)
+    def forward(
+        self, x: torch.Tensor, adj: torch.Tensor, dropout_p: float = 0.0, seed: int | None = None
+    ) -> torch.Tensor:
+        """x: [B, N, in]; adj: [B, N, N] bool. Returns [B, N, heads*head_dim].
+        `dropout_p` > 0 drops attention weights, keyed by the 64-bit `seed`."""
+        out = session_attention(
+            self.query(x), self.key(x), self.value(x), adj, self.heads, dropout_p, seed
+        )
         x_r = self.skip(x)
         beta = torch.sigmoid(self.beta(torch.cat([out, x_r, out - x_r], dim=-1)))
         return beta * x_r + (1.0 - beta) * out

@@ -13,7 +13,10 @@ MODEL_NAMES = ("graphsage", "gat", "graph_transformer", "graph_transformer_optim
 
 def create_model(name: str, num_items: int, **kwargs) -> GraphTransformer:
     """Build a model by name; kwargs are the config fields plus `device` and
-    `generator`. GraphSAGE and GAT are not ported yet."""
+    `generator`. The model is allocated on ``cuda`` unless the caller passes
+    `device` (``"cpu"``, or ``"meta"`` for a module that a checkpoint fills);
+    without a CUDA device the default raises. GraphSAGE and GAT are not
+    ported yet."""
     if name == "graph_transformer":
         return create_graph_transformer(num_items, **kwargs)
     if name == "graph_transformer_optimized":

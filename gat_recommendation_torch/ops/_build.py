@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source compiles with ``nvcc`` into its own shared library with a plain C
-interface, loaded with ``ctypes``. A library is keyed by a hash of its source
-and the compiler flags and lands in ``build/torch_kernels/`` at the repo root,
+interface, loaded with ``ctypes``. A library is keyed by a hash of its source,
+the shared headers (``csrc/*.cuh``) and the compiler flags and lands in ``build/torch_kernels/`` at the repo root,
 so an edited kernel rebuilds and an unchanged one is reused. ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for them all.
 A failed build raises with the compiler's output; nothing falls back.
@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("session_attention", "score_chunkmax")
+KERNELS = ("session_attention", "score_chunkmax", "embedding_adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,8 +44,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -27,6 +27,7 @@ from gat_recommendation_torch.data.batching import (
     pick_bucket,
 )
 from gat_recommendation_torch.data.graph import load_edges
+from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.models.base import padded_rows
 from gat_recommendation_torch.models.registry import create_model
 from gat_recommendation_torch.ops.scoring import full_catalog_topk
@@ -37,14 +38,6 @@ from gat_recommendation_torch.train import checkpoint as ckpt
 
 def _repo_root() -> Path:
     return Path(__file__).resolve().parents[2]
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or ``cuda`` when None; raises if ``cuda`` is asked for and absent."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return device
 
 
 class Recommender:

@@ -65,7 +65,7 @@ def checkpoints(tmp_path_factory):
         jax.tree.map(np.asarray, params), state, meta["model_config"]
     )
     cfg = dict(meta["model_config"])
-    port_model = registry.create_model(model.name, cfg.pop("num_items"), **cfg)
+    port_model = registry.create_model(model.name, cfg.pop("num_items"), device="cpu", **cfg)
     port_model.load_state_dict({**weights, **buffers})
     port_ckpt.save(out / "port_ckpt", port_model, epoch=3, best_val_metric=0.25)
     return out / "jax_ckpt", out / "port_ckpt", edges
@@ -203,7 +203,7 @@ def test_checkpoint_manifest_mismatch_raises(checkpoints):
     _, port_path, _ = checkpoints
     model = registry.create_model(
         "graph_transformer_optimized", NUM_ITEMS, embedding_dim=16, hidden_dim=16,
-        laplacian_k=4, num_layers=3,
+        laplacian_k=4, num_layers=3, device="cpu",
     )
     with pytest.raises(ValueError, match="manifest"):
         port_ckpt.restore_params_state(port_path, model)
