@@ -11,10 +11,16 @@ Phases, each fatal on failure (nothing is caught and carried on):
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes (attention B=1, N in {8,16,32,56}, and B=512, N=56;
      scoring B=1 over the full 467,456-row table), plus an integer-valued
-     tie case through the full exact top-k. Times of the kernel, the plain
+     tie case through the full exact top-k at B=1 and at B=130 (the tiled
+     kernel, a ragged session tile). Times of the kernel, the plain
      version and a library yardstick: device time from a CUDA graph of 20
      calls (median of 10 replays), and eager time per call with the host's
-     dispatch (median of 30 after warm-up), both from CUDA events.
+     dispatch (median of 30 after warm-up), both from CUDA events. Then the
+     two kernels inside each wrapper against each other: the attention
+     forward (one warp per destination, one block per session and head) at
+     B in {1,8,32,64,128,512}, N in {8,56}, and scoring (one warp per chunk,
+     the tiled product) at B in {1,2,4,8,16,64,512}, with the kernel the
+     wrapper chooses at each size.
   4. the serving slice at full width: a seeded optimized Graph Transformer
      (466,865 items, D=256, 2 layers, 2 heads) saved through the port's
      checkpoint, a synthetic 737,716-edge co-occurrence graph, the
@@ -22,7 +28,7 @@ Phases, each fatal on failure (nothing is caught and carried on):
      requests over all four node buckets, each checked and compared with a
      CPU copy of the port (the plain versions).
   5. the kernels' launch counters over phase 4: 2 attention launches and 1
-     scoring launch per request.
+     scoring launch per request, none of them through the batch kernels.
   6. a torch.profiler breakdown of the same requests (device busy time,
      idle share, the kernels by device time).
   7. the training kernels against their plain versions on the card, at the
@@ -31,7 +37,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
      the same by construction); the sparse and the dense AdamW over the full
      467,456 x 256 table, float32 moments and bfloat16 moments with
      stochastic rounding (moments bit-equal); the score kernel at the eval
-     batch of 512. Times, bounds and library yardsticks as in phase 3.
+     batch of 512, also with a [B, V] exclusion mask. Times, bounds and
+     library yardsticks as in phase 3.
   8. the training slice at full width: seeded synthetic sessions through
      SessionDataset and iterate_batches(batch_size=512), a Trainer epoch of
      6 sparse steps over all four buckets, 6 more sparse steps on one batch
@@ -41,7 +48,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
      port. The launch counters over the counted steps: 2 attention forward,
      2 attention backward and 1 sparse AdamW per sparse step; 2, 2 and 1
      dense AdamW per dense step; 2 attention forward and 1 scoring launch
-     per eval batch.
+     per eval batch; every attention forward through the staged kernel and
+     the eval batch's scoring through the tiled one.
   9. a torch.profiler breakdown of sparse train steps.
  10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
@@ -79,12 +87,14 @@ from gat_recommendation_torch.ops.embedding_adamw import (
 from gat_recommendation_torch.ops.score_chunkmax import (
     score_chunkmax,
     score_chunkmax_reference,
+    score_chunkmax_variant,
 )
 from gat_recommendation_torch.ops.scoring import dense_topk, full_catalog_topk, select_topk
 from gat_recommendation_torch.ops.session_attention import (
     session_attention,
     session_attention_backward,
     session_attention_reference,
+    session_attention_variant,
 )
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
 from gat_recommendation_torch.serving import app
@@ -257,7 +267,7 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
 
 def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
     """B = 1 with an exclusion mask is the serving call; B = 512 without one
-    is the eval step's (timed at a smaller depth: the kernel loops over B)."""
+    is the eval step's, which is also checked once with a [B, V] mask."""
     dev = torch.device("cuda")
     rows = ROWS
     table = torch.randn(rows, DIM, device=dev, generator=gen)
@@ -283,6 +293,20 @@ def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
     if int(finite.sum()) != B * (NUM_ITEMS - n_excluded):
         raise AssertionError("phantom and excluded columns must be -inf, all others finite")
 
+    if B > 1:
+        masked = torch.rand(B, rows, device=dev, generator=gen) < 0.01
+        masked[B - 1, 64:96] = True  # one whole chunk excluded
+        got_m = score_chunkmax(sess, table, NUM_ITEMS, masked)
+        want_m = score_chunkmax_reference(sess, table, NUM_ITEMS, masked)
+        torch.cuda.synchronize()
+        for g, w in zip(got_m, want_m):
+            torch.testing.assert_close(g, w, **SCORE_TOL)
+            if not torch.equal(torch.isneginf(g), torch.isneginf(w)):
+                raise AssertionError("masked and phantom columns must be -inf, and no others")
+        if not bool(torch.isneginf(got_m[1][B - 1, 2])):
+            raise AssertionError("a chunk with every column excluded must have a -inf max")
+        del masked, got_m, want_m
+
     n_bytes = 4 * rows * DIM + 4 * B * DIM + (rows if B == 1 else 0) + B * (4 * rows + 4 * rows // 32)
     bound, bound_by = bound_ms(n_bytes, 2 * B * rows * DIM)
 
@@ -290,7 +314,7 @@ def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
         scores = torch.matmul(sess, table.T)
         return scores.view(B, -1, 32).amax(-1)
 
-    depth = dict(calls=20, reps=10, eager_reps=30) if B == 1 else dict(calls=2, reps=3, eager_reps=3)
+    depth = dict(calls=20, reps=10, eager_reps=30 if B == 1 else 10)
     return {
         "shape": f"B={B} V={rows} D={DIM}",
         "max_abs_err": err,
@@ -308,14 +332,14 @@ def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
     }
 
 
-def check_ties(gen: torch.Generator) -> None:
+def check_ties(gen: torch.Generator, B: int = 1) -> None:
     """Entries in {-1, 0, 1}: every score is an exact integer in any order of
     summation, so ties are massive and the kernel's top-k must EQUAL the
     stable dense top-k (lowest index first), at k = 10 and 100."""
     dev = torch.device("cuda")
     rows = 467_456
     table = torch.randint(-1, 2, (rows, DIM), device=dev, generator=gen).float()
-    sess = torch.randint(-1, 2, (1, DIM), device=dev, generator=gen).float()
+    sess = torch.randint(-1, 2, (B, DIM), device=dev, generator=gen).float()
     full, _ = score_chunkmax_reference(sess, table, NUM_ITEMS)
     cut_tied = False
     for k in (10, 100):
@@ -329,6 +353,58 @@ def check_ties(gen: torch.Generator) -> None:
         cut_tied |= int((full[0] == last).sum()) > int((s_want[0] == last).sum())
     if not cut_tied:
         raise AssertionError("tie case has no tie across the cut at any k")
+
+
+def crossover_attention(gen: torch.Generator) -> list[dict]:
+    """The two forward kernels inside session_attention, each named outright,
+    without dropout (the serving and evaluation instance), with the kernel the
+    wrapper itself chooses at that size. Device ms per call."""
+    dev = torch.device("cuda")
+    rows = []
+    for N in (8, 56):
+        for B in (1, 8, 32, 64, 128, 512):
+            q, k, v = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(3))
+            adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
+            before = session_attention.staged_launches
+            session_attention(q, k, v, adj, HEADS)
+            chosen = "staged" if session_attention.staged_launches > before else "warp"
+            row = {"B": B, "N": N, "pairs": B * HEADS, "chosen": chosen}
+            for variant in ("warp", "staged"):
+                row[f"{variant}_ms"] = device_ms(
+                    lambda: session_attention_variant(q, k, v, adj, HEADS, 0.0, 0, variant))
+            rows.append(row)
+    return rows
+
+
+def crossover_scoring(gen: torch.Generator) -> list[dict]:
+    """The two kernels inside score_chunkmax, each named outright, over the
+    full table, with the kernel the wrapper itself chooses at that batch.
+    Device ms per call; the per-session kernel's time grows with B, so its
+    large batches are timed at a smaller depth."""
+    dev = torch.device("cuda")
+    table = torch.randn(ROWS, DIM, device=dev, generator=gen)
+    rows = []
+    for B in (1, 2, 4, 8, 16, 64, 512):
+        sess = torch.randn(B, DIM, device=dev, generator=gen)
+        before = score_chunkmax.tile_launches
+        score_chunkmax(sess, table, NUM_ITEMS)
+        chosen = "tile" if score_chunkmax.tile_launches > before else "warp"
+        row = {"B": B, "chosen": chosen}
+        for variant in ("warp", "tile"):
+            depth = dict(calls=1, reps=3) if variant == "warp" and B >= 64 else dict(calls=4, reps=5)
+            row[f"{variant}_ms"] = device_ms(
+                lambda: score_chunkmax_variant(sess, table, NUM_ITEMS, None, variant), **depth)
+        rows.append(row)
+    return rows
+
+
+def check_crossover(rows: list[dict], what: str, tolerance: float = 1.15) -> None:
+    """The wrapper's choice must be the faster kernel at every measured size,
+    or within `tolerance` of it (near the crossover the two are level)."""
+    for row in rows:
+        other = next(v for v in ("warp", "tile", "staged") if f"{v}_ms" in row and v != row["chosen"])
+        if row[f"{row['chosen']}_ms"] > tolerance * row[f"{other}_ms"]:
+            raise AssertionError(f"{what}: the wrapper chooses the slower kernel at {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +493,7 @@ def serve_full_width(workdir: Path) -> dict:
     url = f"http://127.0.0.1:{server.server_address[1]}/recommend"
     sessions = make_sessions(rng)
     latencies, server_ms, buckets = [], [], set()
-    session_attention.launches = 0
-    score_chunkmax.launches = 0
+    reset_launch_counts()
     try:
         for items, k in sessions:
             status, payload, ms = post(url, {"session_items": items, "k": k})
@@ -437,10 +512,7 @@ def serve_full_width(workdir: Path) -> dict:
         server.server_close()
         thread.join(timeout=30)
         app.set_recommender(None)
-    launches = {
-        "session_attention": session_attention.launches,
-        "score_chunkmax": score_chunkmax.launches,
-    }
+    launches = launch_counts()
     if buckets != set(BUCKETS):
         raise AssertionError(f"requests covered buckets {sorted(buckets)}, want {BUCKETS}")
 
@@ -724,23 +796,33 @@ def make_training_model(dropout: float, device=None):
 
 
 def launch_counts() -> dict:
+    """Every wrapper's launches, and of those the ones that went to the batch
+    kernels (the staged attention forward, the tiled scoring product)."""
     return {
         "session_attention": session_attention.launches,
+        "session_attention_staged": session_attention.staged_launches,
         "session_attention_backward": session_attention.backward_launches,
         "score_chunkmax": score_chunkmax.launches,
+        "score_chunkmax_tile": score_chunkmax.tile_launches,
         "sparse_adamw": sparse_adamw.launches,
         "embedding_adamw": embedding_adamw.launches,
     }
 
 
 def reset_launch_counts() -> None:
-    session_attention.launches = session_attention.backward_launches = 0
-    score_chunkmax.launches = sparse_adamw.launches = embedding_adamw.launches = 0
+    session_attention.launches = session_attention.staged_launches = 0
+    session_attention.backward_launches = 0
+    score_chunkmax.launches = score_chunkmax.tile_launches = 0
+    sparse_adamw.launches = embedding_adamw.launches = 0
 
 
 def expect_launches(what: str, **want) -> dict:
+    """`want` names the wrappers' counts; at the train batch every attention
+    forward must be a staged one and every scoring launch a tiled one."""
     got = launch_counts()
     want = {**dict.fromkeys(got, 0), **want}
+    want["session_attention_staged"] = want["session_attention"]
+    want["score_chunkmax_tile"] = want["score_chunkmax"]
     if got != want:
         raise AssertionError(f"{what}: launch counts {got}, want {want}")
     return got
@@ -969,8 +1051,18 @@ def main() -> int:
         log(f"[phase 3] session_attention {json.dumps(row)}")
     score = check_scoring(gen)
     log(f"[phase 3] score_chunkmax {json.dumps(score)}")
-    check_ties(gen)
-    log("[phase 3] integer-valued tie case: kernel top-k equals the stable dense top-k")
+    for B in (1, 130):
+        check_ties(gen, B)
+    log("[phase 3] integer-valued tie case at B=1 and B=130: kernel top-k equals the stable dense top-k")
+    attention_crossover = crossover_attention(gen)
+    for row in attention_crossover:
+        log(f"[phase 3] session_attention warp vs staged {json.dumps(row)}")
+    check_crossover(attention_crossover, "session_attention")
+    scoring_crossover = crossover_scoring(gen)
+    for row in scoring_crossover:
+        log(f"[phase 3] score_chunkmax warp vs tile {json.dumps(row)}")
+    check_crossover(scoring_crossover, "score_chunkmax")
+    torch.cuda.empty_cache()
 
     # Phase 4
     with tempfile.TemporaryDirectory() as tmp:
@@ -983,6 +1075,8 @@ def main() -> int:
     launches = served["launches"]
     if launches["session_attention"] != 2 * n or launches["score_chunkmax"] != n:
         raise AssertionError(f"launch counts {launches} over {n} requests, want 2 and 1 per request")
+    if launches["session_attention_staged"] or launches["score_chunkmax_tile"]:
+        raise AssertionError(f"a single request must not take the batch kernels: {launches}")
     log(f"[phase 5] launches over {n} requests: {json.dumps(launches)}")
 
     # Phase 6
@@ -1032,9 +1126,13 @@ def main() -> int:
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
+        # Which of a wrapper's two kernels the path ran, by the second counters.
+        batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
+        counts = launches if path == "serving" else train_launches
         kernels.append({
             "name": name,
             "path": path,
+            "variant": None if batch is None else (batch if counts[f"{name}_{batch}"] == count else "warp"),
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -15,26 +15,50 @@
 //
 // Layout: sess [B, D] f32, table [V, D] f32, exclude [B, V] uint8 or null,
 // scores [B, V] f32, maxes [B, V/32] f32, all contiguous; V % 32 == 0,
-// D % 4 == 0, D <= 512.
+// D % 4 == 0, D <= 512 (the per-session kernel's four float4 slots a lane).
 //
-// Design: one warp per 32-row chunk (grid-stride). Each lane holds its
-// float4 slots of sess[b] in registers (D=256: two float4, 8 floats a lane),
-// loads 8 table rows at a time as coalesced float4 (each row 1 KB across the
-// warp), and reduces each row's dot product with a warp butterfly; lane r
-// keeps row r's score, so the score write is one coalesced 128-byte store and
-// the chunk max one more butterfly. f32 accumulation, no TF32. For B > 1 each
-// warp loops over the sessions and re-reads its chunk from L1: correct but
-// slow at B=512 (a tensor-core tile version is later work).
+// Two kernels; score_chunkmax_forward chooses by B (kTileMinBatch below).
 //
-// Bound on an H100 SXM (3.35 TB/s): at B=1, V=467,456, D=256 one read of the
-// 478.7 MB table is about 143 us; the 0.5 GFLOP of FMAs and the 1.9 MB of
-// scores written are far below that, so the kernel is bound by bytes
-// (chip_smoke.py measured 0.160 ms on an H100 80GB HBM3 at 700 W: 90 % of
-// the bound).
+// One session at a time (serving, B below kTileMinBatch): one warp per 32-row
+// chunk (grid-stride). Each lane holds its float4 slots of sess[b] in
+// registers (D=256: two float4, 8 floats a lane), loads 8 table rows at a
+// time as coalesced float4 (each row 1 KB across the warp), and reduces each
+// row's dot product with a warp butterfly; lane r keeps row r's score, so the
+// score write is one coalesced 128-byte store and the chunk max one more
+// butterfly. A warp loops over the sessions, so its time grows with B.
+// Bound at B=1, V=467,456, D=256 on an H100 SXM (3.35 TB/s): one read of the
+// 478.7 MB table, about 143 us; the 0.5 GFLOP of FMAs are far below that.
+//
+// A batch (evaluation, B from kTileMinBatch up): the work is a
+// [B, D] x [D, V] product, at B=512 122.5 GFLOP against 1.47 GB moved, so
+// float32 operations bound it (1.83 ms at 67 TFLOP/s, bytes 0.44 ms) and the
+// design is a register-tiled float32 product. A block of 256 threads owns
+// 128 sessions x 128 items (4 chunks) and walks D in steps of 32 through a
+// ring of 3 shared-memory stages (108 KB) filled by 16-byte cp.async, the
+// ragged edges (B, V, D) zero-filled by the copy. Both operands are
+// K-contiguous, so a tile is staged as [row][k] with a row stride of 36
+// floats: a thread reads float4 along k, and 8 consecutive rows fall on 8
+// different 16-byte bank groups. One block an SM, its 64 sums, 36 operand
+// registers and the loads of the next step held without spilling (two blocks
+// at 128 registers spill and measured slower).
+// Thread (ty, tx) keeps sessions ty + 16 j and items tx + 16 i
+// (j, i < 8) as 64 sums in registers: 16 LDS.128 feed 256 FMAs. Each sum is
+// one fmaf chain over k ascending in full float32 (no TF32). The epilogue
+// stays in registers: both predicates, the score stores (16 consecutive
+// floats per half-warp), and per session and chunk the max over the two
+// columns a thread holds and a 4-step shuffle over the 16 threads that hold
+// the rest; the scores are never read back. The grid runs the session tiles
+// of one item tile next to each other, so a table tile comes from device
+// memory once and from L2 for the other session tiles.
+//
+// chip_smoke.py measures both kernels against their bounds; PERF.md holds
+// the times.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -114,6 +138,128 @@ score_chunkmax_kernel(const float* __restrict__ sess, const float* __restrict__ 
   }
 }
 
+// ---- the batch kernel: 128 sessions x 128 items per block ----
+
+constexpr int kTileMinBatch = 6;  // B from here up takes the batch kernel; set from chip_smoke.py's crossover table
+constexpr int kTile = 128;        // sessions and items per block
+constexpr int kTileK = 32;        // floats of D per stage
+constexpr int kTileLd = kTileK + 4;  // row stride of a staged tile: odd in float4 units
+constexpr int kStages = 3;
+constexpr int kTileThreads = 256;  // 16 x 16 threads, an 8 x 8 micro-tile each
+constexpr int kStageFloats = 2 * kTile * kTileLd;
+constexpr int kTileSmemBytes = kStages * kStageFloats * (int)sizeof(float);
+
+__global__ void __launch_bounds__(kTileThreads, 1)
+score_chunkmax_tile_kernel(const float* __restrict__ sess, const float* __restrict__ table,
+                           const uint8_t* __restrict__ exclude, float* __restrict__ scores,
+                           float* __restrict__ maxes, int B, int V, int D, int num_items,
+                           int m_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int tx = threadIdx.x & 15;  // items tx + 16 i
+  const int ty = threadIdx.x >> 4;  // sessions ty + 16 j
+  const int m0 = (blockIdx.x % m_tiles) * kTile;
+  const long long n0 = (long long)(blockIdx.x / m_tiles) * kTile;
+  const int n_k = (D + kTileK - 1) / kTileK;
+
+  // One stage: the session tile, then the item tile, each [128][kTileLd].
+  // 8 threads copy the 128 bytes of one row; rows or k past the edge are zeros.
+  auto load_stage = [&](int stage, int kt) {
+    float* dst = smem + stage * kStageFloats;
+    const int k0 = kt * kTileK;
+#pragma unroll
+    for (int t = threadIdx.x; t < 2 * kTile * (kTileK / 4); t += kTileThreads) {
+      const bool items = t >= kTile * (kTileK / 4);
+      const int r = (t / (kTileK / 4)) % kTile;
+      const int c = k0 + (t % (kTileK / 4)) * 4;
+      const long long row = items ? n0 + r : m0 + r;
+      const bool valid = c < D && row < (items ? V : B);
+      const float* src = (items ? table : sess) + (valid ? row * D + c : 0);
+      cp_async16_or_zero(dst + (items ? kTile * kTileLd : 0) + r * kTileLd + (c - k0), src, valid);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
+  }
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_k) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of stage kt have landed
+    __syncthreads();               // everyone's have, and everyone is done with stage kt - 1
+    if (kt + kStages - 1 < n_k) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    const float* a = smem + (kt % kStages) * kStageFloats + ty * kTileLd;
+    const float* b = smem + (kt % kStages) * kStageFloats + (kTile + tx) * kTileLd;
+#pragma unroll
+    for (int kk = 0; kk < kTileK; kk += 4) {
+      float4 bf[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bf[i] = *reinterpret_cast<const float4*>(b + 16 * i * kTileLd + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 af = *reinterpret_cast<const float4*>(a + 16 * j * kTileLd + kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j][i] = dot4(af, bf[i], acc[j][i]);
+      }
+    }
+  }
+
+  // Epilogue. Chunk g of the tile is items 32 g .. 32 g + 31: this thread's
+  // columns i = 2 g and 2 g + 1, and the same of the 15 other tx of its
+  // half-warp (one ty per half-warp, so the xor shuffle stays inside it).
+  const long long n_chunks = V / kChunk;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int row = m0 + ty + 16 * j;
+    const bool row_ok = row < B;
+    const long long at = (long long)row * V;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int i = 2 * g; i < 2 * g + 2; ++i) {
+        const long long col = n0 + tx + 16 * i;
+        float val = -INFINITY;
+        if (row_ok && col < V) {
+          const bool keep = col < num_items && (exclude == nullptr || exclude[at + col] == 0);
+          val = keep ? acc[j][i] : -INFINITY;
+          scores[at + col] = val;
+        }
+        cmax = fmaxf(cmax, val);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
+      const long long chunk = n0 / kChunk + g;
+      if (tx == 0 && row_ok && chunk < n_chunks) maxes[(long long)row * n_chunks + chunk] = cmax;
+    }
+  }
+}
+
+int launch_tile(const void* sess, const void* table, const void* exclude, void* scores,
+                void* maxes, int B, int V, int D, int num_items, cudaStream_t stream) {
+  static bool opted_in = false;  // 108 KB of dynamic shared memory: above the 48 KB default
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        score_chunkmax_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const int m_tiles = (B + kTile - 1) / kTile;
+  const long long blocks = (long long)m_tiles * ((V + kTile - 1) / kTile);
+  if (blocks == 0) return 0;
+  score_chunkmax_tile_kernel<<<(unsigned)blocks, kTileThreads, kTileSmemBytes, stream>>>(
+      static_cast<const float*>(sess), static_cast<const float*>(table),
+      static_cast<const uint8_t*>(exclude), static_cast<float*>(scores),
+      static_cast<float*>(maxes), B, V, D, num_items, m_tiles);
+  return 0;
+}
+
 template <int NV>
 void launch(const void* sess, const void* table, const void* exclude, void* scores,
             void* maxes, int B, int V, int D, int num_items, cudaStream_t stream) {
@@ -129,19 +275,33 @@ void launch(const void* sess, const void* table, const void* exclude, void* scor
 }  // namespace
 
 // Shapes are checked by the Python wrapper. `exclude` may be null (no
-// exclusion); it is read with row stride V. Returns cudaGetLastError().
-extern "C" int score_chunkmax_forward(const void* sess, const void* table, const void* exclude,
-                                      void* scores, void* maxes, int B, int V, int D,
-                                      int num_items, void* stream) {
+// exclusion); it is read with row stride V. `tile` names the kernel: nonzero
+// the batch kernel, zero the per-session one. Returns a cudaError_t.
+extern "C" int score_chunkmax_forward_variant(const void* sess, const void* table,
+                                              const void* exclude, void* scores, void* maxes,
+                                              int B, int V, int D, int num_items, int tile,
+                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 128) {
+  if (D > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile) {
+    const int err = launch_tile(sess, table, exclude, scores, maxes, B, V, D, num_items, s);
+    if (err != 0) return err;
+  } else if (D <= 128) {
     launch<1>(sess, table, exclude, scores, maxes, B, V, D, num_items, s);
   } else if (D <= 256) {
     launch<2>(sess, table, exclude, scores, maxes, B, V, D, num_items, s);
-  } else if (D <= 512) {
-    launch<4>(sess, table, exclude, scores, maxes, B, V, D, num_items, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<4>(sess, table, exclude, scores, maxes, B, V, D, num_items, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The port's entry point: the batch kernel from kTileMinBatch sessions up.
+extern "C" int score_chunkmax_forward(const void* sess, const void* table, const void* exclude,
+                                      void* scores, void* maxes, int B, int V, int D,
+                                      int num_items, void* stream) {
+  return score_chunkmax_forward_variant(sess, table, exclude, scores, maxes, B, V, D, num_items,
+                                        B >= kTileMinBatch, stream);
+}
+
+extern "C" int score_chunkmax_tile_min_batch() { return kTileMinBatch; }

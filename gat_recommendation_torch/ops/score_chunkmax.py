@@ -5,12 +5,19 @@
 items and the padding row when serving), plus ``maxes[b, g]``, the max of
 each 32-column chunk. Phase 2 (``ops/scoring.py``) selects from these.
 
-``score_chunkmax`` is the wrapper: on CUDA tensors it launches the
-hand-written kernel ``csrc/score_chunkmax.cu`` (which replaces the JAX
+``score_chunkmax`` is the wrapper: on CUDA tensors it launches a
+hand-written kernel of ``csrc/score_chunkmax.cu`` (which replaces the JAX
 package's Pallas kernel ``ops/pallas/score_chunkmax.py::fused_score_chunkmax``)
 or raises; on CPU tensors it runs the plain version
 ``score_chunkmax_reference``. Maxes are ``[B, V/32]``; the Pallas kernel
 returns them transposed (``[V/32, B]``).
+
+The source holds two kernels and chooses by the batch: one warp per chunk
+looping over the sessions (serving, B = 1), and a register-tiled product with
+the mask and the chunk max in its epilogue (evaluation batches).
+``score_chunkmax.launches`` counts every launch, ``score_chunkmax.tile_launches``
+those that went to the tiled kernel. ``score_chunkmax_variant`` names the
+kernel itself; it exists for measuring the two against each other.
 """
 
 from __future__ import annotations
@@ -78,6 +85,11 @@ def _lib() -> ctypes.CDLL:
     fn = lib.score_chunkmax_forward
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    forced = lib.score_chunkmax_forward_variant
+    forced.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    forced.restype = ctypes.c_int
+    lib.score_chunkmax_tile_min_batch.argtypes = []
+    lib.score_chunkmax_tile_min_batch.restype = ctypes.c_int
     return lib
 
 
@@ -95,6 +107,27 @@ def score_chunkmax(
     """
     if sess.device.type == "cpu":
         return score_chunkmax_reference(sess, table, num_items, exclude)
+    return _launch(sess, table, num_items, exclude, None)
+
+
+def score_chunkmax_variant(
+    sess: torch.Tensor,
+    table: torch.Tensor,
+    num_items: int | None,
+    exclude: torch.Tensor | None,
+    variant: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``score_chunkmax`` on CUDA tensors through the named kernel, ``"warp"``
+    (one warp per chunk, a loop over the sessions) or ``"tile"`` (the tiled
+    product), whatever the batch. For measuring the crossover between the
+    two; the port itself calls ``score_chunkmax``."""
+    if variant not in ("warp", "tile"):
+        raise ValueError(f"variant must be 'warp' or 'tile', got {variant!r}")
+    return _launch(sess, table, num_items, exclude, variant)
+
+
+def _launch(sess, table, num_items, exclude, variant: str | None):
+    """Check the arguments and launch; `variant` None lets the source choose by B."""
     if sess.device.type != "cuda":
         raise ValueError(f"score_chunkmax runs on cuda or cpu tensors, got {sess.device}")
     B, D = sess.shape
@@ -113,17 +146,26 @@ def score_chunkmax(
         raise ValueError("exclude must be contiguous on the same device as sess")
     scores = torch.empty((B, V), dtype=torch.float32, device=sess.device)
     maxes = torch.empty((B, V // CHUNK), dtype=torch.float32, device=sess.device)
+    lib = _lib()
+    args = (
+        sess.data_ptr(), table.data_ptr(),
+        None if exclude is None else exclude.data_ptr(),
+        scores.data_ptr(), maxes.data_ptr(),
+        B, V, D, _valid_columns(V, num_items),
+    )
     with torch.cuda.device(sess.device):
-        err = _lib().score_chunkmax_forward(
-            sess.data_ptr(), table.data_ptr(),
-            None if exclude is None else exclude.data_ptr(),
-            scores.data_ptr(), maxes.data_ptr(),
-            B, V, D, _valid_columns(V, num_items),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant is None:
+            tile = B >= lib.score_chunkmax_tile_min_batch()
+            err = lib.score_chunkmax_forward(*args, stream)
+        else:
+            tile = variant == "tile"
+            err = lib.score_chunkmax_forward_variant(*args, int(tile), stream)
     _build.check(err, "score_chunkmax")
     score_chunkmax.launches += 1
+    score_chunkmax.tile_launches += int(tile)
     return scores, maxes
 
 
 score_chunkmax.launches = 0
+score_chunkmax.tile_launches = 0

@@ -15,6 +15,14 @@ the card the forward and the backward are one ``torch.autograd.Function``:
 the forward saves only its inputs and the backward kernel recomputes the
 scores, the row max and the row sum.
 
+The source holds two forward kernels and chooses by ``B * heads``: one warp
+per destination row (serving), and one block per session and head with K and
+V staged in shared memory (training and evaluation batches).
+``session_attention.launches`` counts every forward launch,
+``session_attention.staged_launches`` those that went to the staged kernel.
+``session_attention_variant`` names the kernel itself; it exists for measuring
+the two against each other.
+
 The dropout keep bit of weight ``(b, h, i, j)`` is a pure function of
 ``(seed, b, h, i, j)``: ``counter_hash(seed, linear index) >> 8`` below
 ``(1-p)·2^24`` (``ops/rounding.py``). No mask tensor is stored; the kernels
@@ -81,6 +89,12 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.session_attention_forward.argtypes = [ctypes.c_void_p] * 5 + tail
     lib.session_attention_forward.restype = ctypes.c_int
+    lib.session_attention_forward_variant.argtypes = (
+        [ctypes.c_void_p] * 5 + tail[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.session_attention_forward_variant.restype = ctypes.c_int
+    lib.session_attention_staged_min_pairs.argtypes = []
+    lib.session_attention_staged_min_pairs.restype = ctypes.c_int
     lib.session_attention_backward.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.session_attention_backward.restype = ctypes.c_int
     return lib
@@ -90,18 +104,26 @@ class _SessionAttention(torch.autograd.Function):
     """Forward and backward kernels of csrc/session_attention.cu."""
 
     @staticmethod
-    def forward(ctx, q, k, v, adj, heads: int, dropout_p: float, seed: int):
+    def forward(ctx, q, k, v, adj, heads: int, dropout_p: float, seed: int, variant: str | None):
         B, N, HD = q.shape
         d = HD // heads
         out = torch.empty_like(q)
+        lib = _lib()
+        args = (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(),
+            B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p), seed,
+        )
         with torch.cuda.device(q.device):
-            err = _lib().session_attention_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(),
-                B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p), seed,
-                torch.cuda.current_stream().cuda_stream,
-            )
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant is None:  # the source chooses by B * heads
+                staged = B * heads >= lib.session_attention_staged_min_pairs()
+                err = lib.session_attention_forward(*args, stream)
+            else:
+                staged = variant == "staged"
+                err = lib.session_attention_forward_variant(*args, int(staged), stream)
         _build.check(err, "session_attention")
         session_attention.launches += 1
+        session_attention.staged_launches += int(staged)
         ctx.save_for_backward(q, k, v, adj)
         ctx.args = (heads, dropout_p, seed)
         return out
@@ -110,7 +132,7 @@ class _SessionAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, adj = ctx.saved_tensors
         dq, dk, dv = session_attention_backward(q, k, v, adj, grad_out, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def session_attention_backward(
@@ -173,6 +195,30 @@ def session_attention(
     seed = 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
     if q.device.type == "cpu":
         return session_attention_reference(q, k, v, adj, heads, dropout_p, seed)
+    return _launch(q, k, v, adj, heads, dropout_p, seed, None)
+
+
+def session_attention_variant(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    adj: torch.Tensor,
+    heads: int,
+    dropout_p: float,
+    seed: int,
+    variant: str,
+) -> torch.Tensor:
+    """``session_attention`` on CUDA tensors through the named forward kernel,
+    ``"warp"`` (one warp per destination row) or ``"staged"`` (one block per
+    session and head), whatever the batch. For measuring the crossover
+    between the two; the port itself calls ``session_attention``."""
+    if variant not in ("warp", "staged"):
+        raise ValueError(f"variant must be 'warp' or 'staged', got {variant!r}")
+    return _launch(q, k, v, adj, heads, dropout_p, seed & 0xFFFFFFFFFFFFFFFF, variant)
+
+
+def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None):
+    """Check the arguments and launch; `variant` None lets the source choose."""
     if q.device.type != "cuda":
         raise ValueError(f"session_attention runs on cuda or cpu tensors, got {q.device}")
     B, N, HD = q.shape
@@ -191,8 +237,9 @@ def session_attention(
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"N={N} nodes; the kernel takes 1..{MAX_NODES}")
     keep_threshold(dropout_p)  # validates the rate before anything launches
-    return _SessionAttention.apply(q, k, v, adj, heads, dropout_p, seed)
+    return _SessionAttention.apply(q, k, v, adj, heads, dropout_p, seed, variant)
 
 
 session_attention.launches = 0
+session_attention.staged_launches = 0
 session_attention.backward_launches = 0

@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time edited variants of a CUDA kernel source against the shipped one, on one NVIDIA GPU.
+
+    python3 scripts/gpu/kernel_variants.py score '{"two_blocks": [["__launch_bounds__(kTileThreads, 1)", "__launch_bounds__(kTileThreads, 2)"]]}'
+    python3 scripts/gpu/kernel_variants.py attn  '{"no_softmax": [["i0 < N; i0 += 2 * n_warps", "i0 < N - 64; i0 += 2 * n_warps"]]}'
+
+A variant is a name and a list of [old, new] text substitutions applied to
+gat_recommendation_torch/csrc/score_chunkmax.cu ("score") or
+session_attention.cu ("attn"); a first pair ["FILE", path] takes a whole
+other source instead. The variant "shipped" (no substitution) is always
+added. Every variant is compiled with the port's nvcc flags into
+build/kernel_variants/ (all at once), loaded with ctypes and called through
+the batch entry point (`*_forward_variant` with the batch kernel named) on
+the shapes the training path uses: scoring at B = 512 (and 8, 64, 128) over
+the full 467,456 x 256 table, the attention forward at B = 512, N in {56, 32,
+16, 8}, 2 heads of 128, dropout 0.1. Printed per variant: ptxas registers and
+spills of the batch kernel, whether the result is within the smoke test's
+tolerance of the plain PyTorch version, its largest error, and device ms per
+call (CUDA graph of calls, median of replays, as chip_smoke.py times). A
+substitution that removes a phase makes the result wrong and shows what the
+phase costs. The library yardsticks (torch.matmul + amax, SDPA) are timed
+beside them. Nothing here is used by the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import ATTN_TOL, DIM, HEADS, NUM_ITEMS, ROWS, SCORE_TOL, device_ms, nvidia_smi  # noqa: E402
+from gat_recommendation_torch.ops import _build  # noqa: E402
+from gat_recommendation_torch.ops.score_chunkmax import score_chunkmax_reference  # noqa: E402
+from gat_recommendation_torch.ops.session_attention import (  # noqa: E402
+    keep_threshold,
+    session_attention_reference,
+)
+
+OUT = REPO / "build" / "kernel_variants"
+SOURCES = {"score": ("score_chunkmax", "tile_kernel"), "attn": ("session_attention", "staged_kernelILb1ELi4")}
+
+
+def build_variants(source: str, kernel_tag: str, variants: dict) -> dict:
+    """Compile every variant (in parallel); returns {name: ctypes library}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, subs in variants.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        if subs and subs[0][0] == "FILE":
+            text, subs = Path(subs[0][1]).read_text(), subs[1:]
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} is not in the source")
+            text = text.replace(old, new)
+        src, lib = OUT / f"{source}_{name}.cu", OUT / f"{source}_{name}.so"
+        src.write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+        jobs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name}: nvcc failed\n{log[-4000:]}")
+        ours = False
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                ours = kernel_tag in line
+            elif ours and ("registers" in line or "spill" in line):
+                print(f"{name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def time_scoring(libs: dict, gen: torch.Generator) -> None:
+    dev = torch.device("cuda")
+    table = torch.randn(ROWS, DIM, device=dev, generator=gen)
+    B = 512
+    sess = torch.randn(B, DIM, device=dev, generator=gen)
+    want = score_chunkmax_reference(sess, table, NUM_ITEMS, None)
+    finite = torch.isfinite(want[0])
+    scores = torch.empty((B, ROWS), device=dev)
+    maxes = torch.empty((B, ROWS // 32), device=dev)
+    for name, lib in libs.items():
+        fn = lib.score_chunkmax_forward_variant
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+        def run(batch=B):
+            err = fn(sess.data_ptr(), table.data_ptr(), None, scores.data_ptr(), maxes.data_ptr(),
+                     batch, ROWS, DIM, NUM_ITEMS, 1, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: cudaError_t {err}")
+
+        run()
+        torch.cuda.synchronize()
+        row = {
+            "variant": name,
+            "within_tolerance": torch.allclose(scores, want[0], **SCORE_TOL) and torch.allclose(maxes, want[1], **SCORE_TOL),
+            "max_abs_err": (scores - want[0])[finite].abs().max().item(),
+            "B512_ms": device_ms(run, 10, 5),
+        }
+        for batch in (8, 64, 128):
+            row[f"B{batch}_ms"] = device_ms(lambda: run(batch), 10, 5)
+        print(json.dumps(row), flush=True)
+    print(json.dumps({
+        "library_ms": device_ms(lambda: torch.matmul(sess, table.T).view(B, -1, 32).amax(-1), 10, 5),
+        "matmul_only_ms": device_ms(lambda: torch.matmul(sess, table.T), 10, 5),
+    }))
+
+
+def time_attention(libs: dict, gen: torch.Generator) -> None:
+    dev = torch.device("cuda")
+    B, d, p_drop, seed = 512, DIM // HEADS, 0.1, 5
+    for N in (56, 32, 16, 8):
+        q, k, v = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(3))
+        adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
+        adj[:, 0] = False
+        out = torch.empty_like(q)
+        want = session_attention_reference(q, k, v, adj, HEADS, p_drop, seed)
+        qh, kh, vh = (t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v))
+        sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=adj[:, None], dropout_p=p_drop))
+        for name, lib in libs.items():
+            fn = lib.session_attention_forward_variant
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]
+            row = {"variant": name, "B": B, "N": N, "library_ms": sdpa}
+            for staged in (1, 0):
+                def run():
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(), B, N,
+                             HEADS, d, math.sqrt(d), 1.0 - p_drop, keep_threshold(p_drop), seed, staged,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError_t {err}")
+
+                run()
+                torch.cuda.synchronize()
+                key = "staged" if staged else "warp"
+                row[f"{key}_within_tolerance"] = torch.allclose(out, want, **ATTN_TOL)
+                row[f"{key}_ms"] = device_ms(run)
+            print(json.dumps(row), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) not in (2, 3) or sys.argv[1] not in SOURCES:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 1
+    print(nvidia_smi())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    variants = {"shipped": [], **(json.loads(sys.argv[2]) if len(sys.argv) == 3 else {})}
+    source, kernel_tag = SOURCES[sys.argv[1]]
+    libs = build_variants(source, kernel_tag, variants)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    (time_scoring if sys.argv[1] == "score" else time_attention)(libs, gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

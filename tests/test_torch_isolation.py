@@ -51,3 +51,25 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     assert not re.search(
         r"^\s*(import|from)\s+(jax|optax|orbax|pandas|gat_recommendation_tpu)\b", text, re.M
     )
+
+
+@pytest.mark.parametrize("entry", ["create_model", "Trainer", "Recommender"])
+def test_every_entry_point_defaults_to_the_card_and_raises_without_one(entry, monkeypatch, tmp_path):
+    """No entry point lands on the CPU quietly: without `device` each asks
+    for cuda and raises where there is none."""
+    import torch
+
+    from gat_recommendation_torch.models.registry import create_model
+    from gat_recommendation_torch.serving.recommender import Recommender
+    from gat_recommendation_torch.train.trainer import Trainer
+
+    small = dict(embedding_dim=8, hidden_dim=8, laplacian_k=4, num_layers=1, num_heads=2)
+    model = create_model("graph_transformer_optimized", 50, device="cpu", **small)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "create_model":
+            create_model("graph_transformer_optimized", 50, **small)
+        elif entry == "Trainer":
+            Trainer(model, lambda epoch: iter(()), lambda: iter(()))
+        else:
+            Recommender(tmp_path / "no_checkpoint", tmp_path / "no_edges.csv", warmup=False)

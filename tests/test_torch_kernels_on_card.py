@@ -16,6 +16,13 @@ hold. AdamW: table rtol 1e-6 / atol 1e-7; the moments, bf16 with stochastic
 rounding included, must be EQUAL bit for bit (the kernel does the plain
 version's float32 operations in the same order, without FMA contraction, and
 draws the same rounding bits).
+
+Each wrapper holds two kernels and chooses by shape: scoring by B (one warp
+per chunk below ``TILE_MIN_BATCH`` sessions, the tiled product from there up),
+the attention forward by B * heads (one warp per destination below
+``STAGED_MIN_PAIRS``, one block per session and head from there up). The
+cases below reach both sides by their shapes, and the second launch counter
+of each wrapper says which kernel ran.
 """
 
 import numpy as np
@@ -33,6 +40,8 @@ ATTN_GRAD_TOL = dict(rtol=1e-5, atol=2e-5)
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
 TABLE_TOL = dict(rtol=1e-6, atol=1e-7)
 HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-5)
+TILE_MIN_BATCH = 6  # kTileMinBatch of csrc/score_chunkmax.cu
+STAGED_MIN_PAIRS = 64  # kStagedMinPairs of csrc/session_attention.cu
 
 
 @pytest.fixture
@@ -55,14 +64,18 @@ def _attn_inputs(dev, B, N, HD, seed=0, density=0.35):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,N,heads,HD",
-    [(1, 8, 2, 256), (1, 56, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 256), (2, 33, 1, 96)],
+    [(1, 8, 2, 256), (1, 56, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 256), (2, 33, 1, 96),
+     # one block per (b, h): B * heads >= STAGED_MIN_PAIRS
+     (512, 56, 2, 256), (512, 8, 2, 256), (70, 1, 1, 4), (40, 7, 2, 64), (16, 64, 4, 512),
+     (32, 16, 2, 256), (32, 17, 2, 200), (33, 33, 2, 24), (31, 56, 2, 256), (32, 56, 2, 256)],
 )
 def test_session_attention_kernel_matches_plain(cuda, B, N, heads, HD):
     q, k, v, adj = _attn_inputs(cuda, B, N, HD)
-    before = sa.session_attention.launches
+    before, staged = sa.session_attention.launches, sa.session_attention.staged_launches
     got = sa.session_attention(q, k, v, adj, heads)
     torch.cuda.synchronize()
     assert sa.session_attention.launches == before + 1
+    assert sa.session_attention.staged_launches - staged == int(B * heads >= STAGED_MIN_PAIRS)
     want = sa.session_attention_reference(q, k, v, adj, heads)
     torch.testing.assert_close(got, want, **ATTN_TOL)
     assert torch.all(got[:, 0] == 0)
@@ -79,6 +92,51 @@ def test_session_attention_rejects_shapes_the_kernel_does_not_take(cuda):
     strided = k.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         sa.session_attention(q, strided, v, adj, 4)
+    # the same at a batch that would take the staged kernel
+    q, k, v, adj = _attn_inputs(cuda, 64, 65, 64)
+    with pytest.raises(ValueError, match="nodes"):
+        sa.session_attention(q, k, v, adj, 2)
+    q, k, v, adj = _attn_inputs(cuda, 64, 8, 264)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.session_attention(q, k, v, adj, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("B,N,heads,HD", [(1, 56, 2, 256), (8, 8, 2, 256), (64, 56, 2, 256), (40, 7, 2, 64)])
+def test_both_attention_forward_kernels_agree_at_any_batch(cuda, B, N, heads, HD, dropout_p):
+    """The two forward kernels, each named outright, on the same inputs: both
+    within ATTN_TOL of the plain version, and of each other."""
+    q, k, v, adj = _attn_inputs(cuda, B, N, HD)
+    seed = 0x0DDB_A11
+    want = sa.session_attention_reference(q, k, v, adj, heads, dropout_p, seed)
+    got = {}
+    for variant in ("warp", "staged"):
+        staged = sa.session_attention.staged_launches
+        got[variant] = sa.session_attention_variant(q, k, v, adj, heads, dropout_p, seed, variant)
+        torch.cuda.synchronize()
+        assert sa.session_attention.staged_launches - staged == int(variant == "staged")
+        torch.testing.assert_close(got[variant], want, **ATTN_TOL)
+        assert torch.all(got[variant][:, 0] == 0)
+    torch.testing.assert_close(got["warp"], got["staged"], **ATTN_TOL)
+    with pytest.raises(ValueError, match="variant"):
+        sa.session_attention_variant(q, k, v, adj, heads, dropout_p, seed, "tile")
+
+
+@pytest.mark.cuda
+def test_staged_attention_gives_exact_zeros_without_in_edges(cuda):
+    """Whole sessions without an edge, and single isolated rows, at a batch
+    that takes the staged kernel: exact zeros, no NaN from the empty softmax."""
+    q, k, v, adj = _attn_inputs(cuda, 64, 56, 256)
+    adj[::2] = False  # every other session has no edge at all
+    adj[1, 5, :] = False
+    staged = sa.session_attention.staged_launches
+    for dropout_p in (0.0, 0.5):
+        out = sa.session_attention(q, k, v, adj, 2, dropout_p, seed=3)
+        torch.cuda.synchronize()
+        assert torch.all(out[::2] == 0) and torch.all(out[1, 5] == 0)
+        assert torch.isfinite(out).all() and out[1].abs().sum() > 0
+    assert sa.session_attention.staged_launches == staged + 2
 
 
 def _score_inputs(dev, B, V, D, integer, seed=2):
@@ -114,6 +172,70 @@ def test_score_chunkmax_kernel_matches_plain(cuda, B, D, integer):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("D", [4, 100, 256, 512])
+@pytest.mark.parametrize("B,V,num_items", [(2, 96, 70), (7, 4128, 4101), (9, 96, 70), (130, 4128, 4101),
+                                           (130, 96, 96), (512, 8192, 8000)])
+def test_score_chunkmax_ragged_shapes_match_plain(cuda, B, V, num_items, D, integer):
+    """B, V and D off the tiled kernel's 128 x 128 x 16 tile, `num_items`
+    inside a chunk, a [B, V] exclusion mask with one whole chunk excluded."""
+    sess, table = _score_inputs(cuda, B, V, D, integer, seed=B + D)
+    rng = np.random.default_rng(V)
+    mask = rng.random((B, V)) < 0.1
+    mask[B - 1, 32:64] = True
+    exclude = torch.from_numpy(mask).to(cuda)
+    before, tile = sc.score_chunkmax.launches, sc.score_chunkmax.tile_launches
+    got = sc.score_chunkmax(sess, table, num_items, exclude)
+    torch.cuda.synchronize()
+    assert sc.score_chunkmax.launches == before + 1
+    assert sc.score_chunkmax.tile_launches - tile == int(B >= TILE_MIN_BATCH)
+    want = sc.score_chunkmax_reference(sess, table, num_items, exclude)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SCORE_TOL)
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+    assert torch.isneginf(got[0][:, num_items:]).all() and torch.isneginf(got[1][B - 1, 1])
+    if integer:
+        k = min(20, num_items // 2)
+        s_got, i_got = scoring.select_topk(*got, k)
+        s_want, i_want = scoring.dense_topk(sess, table, k, num_items, exclude)
+        assert torch.equal(i_got, i_want) and torch.equal(s_got, s_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_both_score_kernels_agree_at_any_batch(cuda, B):
+    """The two kernels, each named outright, on the same inputs."""
+    V, num_items = 4128, 4101
+    sess, table = _score_inputs(cuda, B, V, 256, False)
+    exclude = torch.zeros((B, V), dtype=torch.bool, device=cuda)
+    exclude[:, ::5] = True
+    want = sc.score_chunkmax_reference(sess, table, num_items, exclude)
+    for variant in ("warp", "tile"):
+        tile = sc.score_chunkmax.tile_launches
+        got = sc.score_chunkmax_variant(sess, table, num_items, exclude, variant)
+        torch.cuda.synchronize()
+        assert sc.score_chunkmax.tile_launches - tile == int(variant == "tile")
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **SCORE_TOL)
+    with pytest.raises(ValueError, match="variant"):
+        sc.score_chunkmax_variant(sess, table, num_items, exclude, "staged")
+
+
+@pytest.mark.cuda
+def test_score_chunkmax_rejects_shapes_no_kernel_takes(cuda):
+    for B in (1, 64):
+        sess, table = _score_inputs(cuda, B, 64, 516, False)
+        with pytest.raises(ValueError, match="<= 512"):
+            sc.score_chunkmax(sess, table)
+        sess, table = _score_inputs(cuda, B, 64, 6, False)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            sc.score_chunkmax(sess, table)
+        sess, table = _score_inputs(cuda, B, 40, 8, False)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            sc.score_chunkmax(sess, table)
+
+
+@pytest.mark.cuda
 def test_score_chunkmax_takes_a_one_row_exclusion_mask(cuda):
     sess, table = _score_inputs(cuda, 1, 4096, 256, False)
     exclude = torch.zeros(4096, dtype=torch.bool, device=cuda)
@@ -129,7 +251,8 @@ def test_score_chunkmax_takes_a_one_row_exclusion_mask(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize(
-    "B,N,heads,HD", [(1, 8, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 512), (2, 33, 1, 96)]
+    "B,N,heads,HD", [(1, 8, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 512), (2, 33, 1, 96),
+                     (70, 1, 1, 4), (40, 7, 2, 64), (16, 64, 4, 512), (32, 16, 2, 256)]
 )
 def test_session_attention_forward_and_backward_match_plain(cuda, B, N, heads, HD, dropout_p):
     q, k, v, adj = _attn_inputs(cuda, B, N, HD)
@@ -146,6 +269,7 @@ def test_session_attention_forward_and_backward_match_plain(cuda, B, N, heads, H
     torch.cuda.synchronize()
     assert sa.session_attention.launches == fwd + 1
     assert sa.session_attention.backward_launches == bwd + 1
+    # The backward redraws the keep bits of whichever forward kernel ran.
     torch.testing.assert_close(grads[0][0], grads[1][0], **ATTN_TOL)
     for got, want in zip(grads[0][1:], grads[1][1:]):
         torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)

@@ -4,6 +4,15 @@ Scores: rtol 1e-5 against the JAX Pallas kernel in interpret mode (float32
 on both sides, summation order differs). Selection: indices must be EQUAL to
 dense ``lax.top_k`` — ties included, which the integer-valued cases make
 exact (every dot product is an exact small integer in any summation order).
+
+The ragged cases (B, V and D off every tile size, ``num_items`` inside a
+chunk, a [B, V] exclusion mask) are the shapes the card's tiled kernel masks
+or zero-fills at its edges; ``tests/test_torch_kernels_on_card.py`` runs the
+same shapes on the card. Here the wrapper runs its plain version, held to
+rtol 1e-5 / atol 1e-4 (the card's tolerance: dots of up to 256 terms of size
+1, scores up to 30, so a score near zero carries 1e-5 of summation noise)
+against the Pallas kernel (interpret mode, inputs padded with zero rows to
+its 256 x 512 tiles, the mask applied afterwards).
 """
 
 import jax
@@ -71,6 +80,51 @@ def test_exclusion_mask_sets_minus_inf_and_feeds_the_maxes():
     )
     assert torch.equal(torch.isneginf(one[0]), torch.isneginf(scores[0]))
     torch.testing.assert_close(one[0], scores[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("make", [_normal, _integer])
+@pytest.mark.parametrize("D", [4, 100, 256])
+@pytest.mark.parametrize("B,V,num_items", [(2, 96, 70), (7, 4128, 4101), (130, 96, 70), (130, 4128, 4101)])
+def test_ragged_shapes_with_exclusion_match_pallas_kernel(make, D, B, V, num_items):
+    sess, table = make(B + D, B, V, D)
+    rng = np.random.default_rng(V)
+    exclude = rng.random((B, V)) < 0.1
+    exclude[B - 1, 32:64] = True  # one whole chunk excluded
+    scores, maxes = port_sc.score_chunkmax(
+        torch.tensor(sess), torch.tensor(table), num_items, torch.tensor(exclude)
+    )
+    # The Pallas kernel takes whole 256 x 512 tiles: pad with zero rows, cut back.
+    sess_p = np.zeros((256, D), np.float32)
+    sess_p[:B] = sess
+    table_p = np.zeros((-(-V // 512) * 512, D), np.float32)
+    table_p[:V] = table
+    want, _ = fused_score_chunkmax(jnp.asarray(sess_p), jnp.asarray(table_p), num_items, interpret=True)
+    want = np.where(exclude, -np.inf, np.asarray(want)[:B, :V])
+    np.testing.assert_allclose(scores.numpy(), want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        maxes.numpy(), want.reshape(B, V // 32, 32).max(-1), rtol=1e-5, atol=1e-4
+    )
+    assert np.array_equal(np.isneginf(scores.numpy()), exclude | (np.arange(V) >= num_items))
+    assert np.isneginf(maxes.numpy()[B - 1, 1])
+    if make is _integer:  # exact scores: the selection must EQUAL dense lax.top_k of the same matrix
+        k = 20
+        want_s, want_i = jax.lax.top_k(jnp.asarray(want), k)
+        got_s, got_i = port_scoring.select_topk(scores, maxes, k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+
+
+def test_variant_entry_points_refuse_cpu_tensors_and_unknown_names():
+    """Naming a kernel outright is for CUDA tensors; on the CPU only the
+    wrapper's plain version exists."""
+    sess, table = _normal(0, 2, 64, 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_sc.score_chunkmax_variant(torch.tensor(sess), torch.tensor(table), None, None, "tile")
+    with pytest.raises(ValueError, match="variant"):
+        port_sc.score_chunkmax_variant(torch.tensor(sess), torch.tensor(table), None, None, "fast")
+    before = (port_sc.score_chunkmax.launches, port_sc.score_chunkmax.tile_launches)
+    port_sc.score_chunkmax(torch.tensor(sess), torch.tensor(table))
+    assert (port_sc.score_chunkmax.launches, port_sc.score_chunkmax.tile_launches) == before
 
 
 @pytest.mark.parametrize(

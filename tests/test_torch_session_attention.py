@@ -4,6 +4,11 @@ The port's plain version (what its wrapper runs on CPU tensors) is held
 against the JAX Pallas kernel in interpret mode and against the attention
 core of the JAX ``transformer_conv``. Tolerance rtol 1e-5 / atol 1e-6: both
 sides are float32 and differ only in summation order.
+
+The batch cases put ``B * heads`` on both sides of the size from which the
+card's wrapper takes its one-block-per-session kernel (64), at node counts
+on and off that kernel's tile sizes; ``tests/test_torch_kernels_on_card.py``
+runs the same shapes on the card. Here the wrapper runs its plain version.
 """
 
 import math
@@ -53,6 +58,34 @@ def test_matches_pallas_kernel_and_xla_core(heads, N, B):
     core = _jax_core(*(jnp.asarray(a) for a in (q, k, v, adj)), heads)
     np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got, np.asarray(core), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [1, 7, 56, 64])
+@pytest.mark.parametrize("B,heads,HD", [(3, 2, 16), (31, 2, 24), (32, 2, 16), (70, 1, 8), (17, 4, 32)])
+def test_batches_around_the_staged_size_match_pallas_kernel_and_xla_core(B, heads, HD, N):
+    q, k, v, adj = _inputs(N + B, B, N, HD)
+    adj[:, 0, :] = False  # an isolated destination in every session
+    got = _port(q, k, v, adj, heads)
+    pallas = fused_session_attention(
+        *(jnp.asarray(a) for a in (q, k, v, adj)), heads=heads, interpret=True
+    )
+    core = _jax_core(*(jnp.asarray(a) for a in (q, k, v, adj)), heads)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(core), rtol=1e-5, atol=1e-6)
+    assert np.all(got[:, 0] == 0.0)
+
+
+def test_variant_entry_point_refuses_cpu_tensors_and_unknown_names():
+    """Naming a kernel outright is for CUDA tensors; on the CPU only the
+    wrapper's plain version exists, and it counts no launch."""
+    t = [torch.from_numpy(a) for a in _inputs(4, 2, 8, 16)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port_attn.session_attention_variant(*t, 2, 0.0, 0, "staged")
+    with pytest.raises(ValueError, match="variant"):
+        port_attn.session_attention_variant(*t, 2, 0.0, 0, "tile")
+    before = (port_attn.session_attention.launches, port_attn.session_attention.staged_launches)
+    port_attn.session_attention(*t, heads=2)
+    assert (port_attn.session_attention.launches, port_attn.session_attention.staged_launches) == before
 
 
 def test_isolated_rows_are_exactly_zero():
