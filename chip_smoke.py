@@ -18,9 +18,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
      dispatch (median of 30 after warm-up), both from CUDA events. Then the
      two kernels inside each wrapper against each other: the attention
      forward (one warp per destination, one block per session and head) at
-     B in {1,8,32,64,128,512}, N in {8,56}, and scoring (one warp per chunk,
+     B in {1,8,16,32,64,128,512}, N in {8,16,32,56}, and scoring (one warp per chunk,
      the tiled product) at B in {1,2,4,8,16,64,512}, with the kernel the
-     wrapper chooses at each size.
+     wrapper chooses at each size. Beside each B=1 attention row the launch
+     floor: an empty kernel of the same grid, block and shared memory, timed
+     from the same kind of graph (at B=1 the bytes bound says nothing).
   4. the serving slice at full width: a seeded optimized Graph Transformer
      (466,865 items, D=256, 2 layers, 2 heads) saved through the port's
      checkpoint, a synthetic 737,716-edge co-occurrence graph, the
@@ -34,7 +36,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
   7. the training kernels against their plain versions on the card, at the
      train shapes: attention forward and backward at B=512, N in {8, 56},
      without dropout and with dropout 0.1 from one seed (the keep bits are
-     the same by construction); the sparse and the dense AdamW over the full
+     the same by construction), N in {16, 32} with dropout, two backward runs
+     bit-equal at every shape; the sparse and the dense AdamW over the full
      467,456 x 256 table, float32 moments and bfloat16 moments with
      stochastic rounding (moments bit-equal); the score kernel at the eval
      batch of 512, also with a [B, V] exclusion mask. Times, bounds and
@@ -50,7 +53,9 @@ Phases, each fatal on failure (nothing is caught and carried on):
      dense AdamW per dense step; 2 attention forward and 1 scoring launch
      per eval batch; every attention forward through the staged kernel and
      the eval batch's scoring through the tiled one.
-  9. a torch.profiler breakdown of sparse train steps.
+  9. a torch.profiler breakdown of sparse train steps, and the attention
+     kernels timed once more at a training batch's own adjacency (sparser
+     than the 0.3 of phase 7), with that density and its bound.
  10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -93,6 +98,7 @@ from gat_recommendation_torch.ops.scoring import dense_topk, full_catalog_topk, 
 from gat_recommendation_torch.ops.session_attention import (
     session_attention,
     session_attention_backward,
+    session_attention_launch_floor,
     session_attention_reference,
     session_attention_variant,
 )
@@ -262,6 +268,8 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
         ),
         "bound_ms": bound,
         "bound_by": bound_by,
+        # what an empty kernel of the row forward's grid costs, from the same kind of graph
+        "launch_floor_ms": device_ms(lambda: session_attention_launch_floor(B, N, HEADS, d)) if B == 1 else None,
     }
 
 
@@ -361,8 +369,8 @@ def crossover_attention(gen: torch.Generator) -> list[dict]:
     wrapper itself chooses at that size. Device ms per call."""
     dev = torch.device("cuda")
     rows = []
-    for N in (8, 56):
-        for B in (1, 8, 32, 64, 128, 512):
+    for N in BUCKETS:
+        for B in (1, 8, 16, 32, 64, 128, 512):
             q, k, v = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(3))
             adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
             before = session_attention.staged_launches
@@ -576,7 +584,8 @@ def profile_requests(rec: Recommender, requests: list) -> dict:
 def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Generator) -> dict:
     """Forward and backward at a train shape. With dropout the kernels and the
     plain version draw the same keep bits from the same seed, so the same
-    tolerances hold. Returns the forward's row and the backward's row."""
+    tolerances hold. The backward has no atomics: two runs must give equal
+    bits. Returns the forward's row and the backward's row."""
     dev = torch.device("cuda")
     q, k, v, dout = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(4))
     adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
@@ -593,16 +602,15 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
         torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)
     if not all(torch.all(t[:, 0] == 0) for t in results[0][:2]):
         raise AssertionError("isolated destinations must give exact zeros, forward and dq")
+    again = session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)
+    if not all(_same_bits(a, b) for a, b in zip(again, results[0][1:])):
+        raise AssertionError("two runs of the attention backward must give equal bits")
     fwd_err = (results[0][0] - results[1][0]).abs().max().item()
     bwd_err = max((g - w).abs().max().item() for g, w in zip(results[0][1:], results[1][1:]))
 
     d = DIM // HEADS
-    edges = int(adj.sum())
     shape = f"B={B} N={N} H={HEADS} d={d} p={dropout_p}"
-    fwd_bound = bound_ms(4 * 4 * B * N * DIM + B * N * N, 4 * d * HEADS * edges)
-    # backward: q, k, v, dO read, dq, dk, dv written, adj read; five edge products
-    # (scores, dO.v, dV, dK, dQ) of 2*d operations each, per head
-    bwd_bound = bound_ms(7 * 4 * B * N * DIM + B * N * N, 10 * d * HEADS * edges)
+    fwd_bound, bwd_bound = attention_bounds(B, N, int(adj.sum()))
     fwd = {"shape": shape, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
     bwd = {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
 
@@ -640,6 +648,35 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
         "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)),
     })
     return {"forward": fwd, "backward": bwd}
+
+
+def attention_bounds(B: int, N: int, edges: int) -> tuple[tuple[float, str], tuple[float, str]]:
+    """(forward, backward) bounds of the attention kernels for `edges` edges.
+    Forward: q, k, v read, out written, adj read; two edge products (q.k and
+    alpha*v) of 2*d operations each, per head. Backward: q, k, v, dO read, dq,
+    dk, dv written, adj read, each once whatever the kernel reads again; five
+    edge products (scores, dO.v, dV, dK, dQ)."""
+    d = DIM // HEADS
+    return (bound_ms(4 * 4 * B * N * DIM + B * N * N, 4 * d * HEADS * edges),
+            bound_ms(7 * 4 * B * N * DIM + B * N * N, 10 * d * HEADS * edges))
+
+
+def attention_at_adjacency(adj: torch.Tensor, gen: torch.Generator) -> dict:
+    """The train-mode attention kernels timed at a given adjacency (a training
+    batch's own, which is sparser than the random 0.3 of the checks above)."""
+    B, N, _ = adj.shape
+    q, k, v, dout = (torch.randn(B, N, DIM, device=adj.device, generator=gen) for _ in range(4))
+    edges = int(adj.sum())
+    fwd_bound, bwd_bound = attention_bounds(B, N, edges)
+    return {
+        "shape": f"B={B} N={N} H={HEADS} d={DIM // HEADS} p={DROPOUT}",
+        "density": edges / (B * N * N),
+        "forward_ms": device_ms(lambda: session_attention(q, k, v, adj, HEADS, DROPOUT, 5)),
+        "forward_bound_ms": fwd_bound[0],
+        "backward_ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, DROPOUT, 5)),
+        "backward_bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1],
+    }
 
 
 def _table_state(gen: torch.Generator, moment_dtype: torch.dtype):
@@ -1007,8 +1044,10 @@ def profile_training(model, loss_fn, optimizer, opt_state, by_bucket: dict, epoc
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    gen = torch.Generator(device="cuda").manual_seed(2)
     return {
         **walls,
+        "attention_at_batch_adjacency": [attention_at_adjacency(on_card[n][0].adj, gen) for n in (56, 8)],
         "sessions_per_s_n56": TRAIN_BATCH / walls["sparse_step_wall_ms_n56"] * 1e3,
         "device_busy_ms_per_sparse_step": busy_ms if rows else "not measured",
         "device_idle_share": 1.0 - busy_ms / walls["sparse_step_wall_ms_n56"] if rows else "not measured",
@@ -1085,8 +1124,8 @@ def main() -> int:
     # Phase 7
     gen = torch.Generator(device="cuda").manual_seed(1)
     train_attn = {}
-    for N in (8, 56):
-        for p_drop in (0.0, DROPOUT):
+    for N in BUCKETS:
+        for p_drop in (0.0, DROPOUT) if N in (8, 56) else (DROPOUT,):
             train_attn[(N, p_drop)] = check_attention_training(TRAIN_BATCH, N, p_drop, gen)
             for part, row in train_attn[(N, p_drop)].items():
                 log(f"[phase 7] session_attention {part} {json.dumps(row)}")
@@ -1146,6 +1185,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "launch_floor_ms": row.get("launch_floor_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

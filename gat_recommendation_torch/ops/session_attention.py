@@ -15,13 +15,19 @@ the card the forward and the backward are one ``torch.autograd.Function``:
 the forward saves only its inputs and the backward kernel recomputes the
 scores, the row max and the row sum.
 
-The source holds two forward kernels and chooses by ``B * heads``: one warp
-per destination row (serving), and one block per session and head with K and
-V staged in shared memory (training and evaluation batches).
+The source holds two forward kernels and chooses by the blocks the first
+would need (``B * heads * ceil(N / 4)``: below 1024 up to 32 nodes, below 448
+above; ``kStagedMinRowBlocks`` in the source): one warp per destination
+row, four rows of a session and head to a block that stages K and V in shared
+memory once for them (serving: even one session spreads over many SMs), and
+one block per session and head (training and evaluation batches). The backward is one block per session and head with two
+tile buffers, refilled as the passes go, so that two blocks share an SM.
 ``session_attention.launches`` counts every forward launch,
-``session_attention.staged_launches`` those that went to the staged kernel.
-``session_attention_variant`` names the kernel itself; it exists for measuring
-the two against each other.
+``session_attention.staged_launches`` those that went to the staged kernel,
+``session_attention.backward_launches`` the backward's.
+``session_attention_variant`` names the forward kernel itself, and
+``session_attention_launch_floor`` launches an empty kernel of the row
+forward's grid; both exist for measuring only.
 
 The dropout keep bit of weight ``(b, h, i, j)`` is a pure function of
 ``(seed, b, h, i, j)``: ``counter_hash(seed, linear index) >> 8`` below
@@ -41,7 +47,7 @@ from gat_recommendation_torch.ops.masked import masked_softmax
 from gat_recommendation_torch.ops.rounding import counter_hash
 
 MAX_NODES = 64  # two sources per lane of one warp
-MAX_HEAD_DIM = 128  # four output columns per lane
+MAX_HEAD_DIM = 128  # one float4 of output columns per lane
 _KEEP_ALL = 1 << 24
 
 
@@ -93,9 +99,11 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + tail[:-1] + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.session_attention_forward_variant.restype = ctypes.c_int
-    lib.session_attention_staged_min_pairs.argtypes = []
-    lib.session_attention_staged_min_pairs.restype = ctypes.c_int
+    lib.session_attention_takes_staged.argtypes = [ctypes.c_int] * 3
+    lib.session_attention_takes_staged.restype = ctypes.c_int
     lib.session_attention_backward.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.session_attention_launch_floor.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.session_attention_launch_floor.restype = ctypes.c_int
     lib.session_attention_backward.restype = ctypes.c_int
     return lib
 
@@ -115,8 +123,8 @@ class _SessionAttention(torch.autograd.Function):
         )
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if variant is None:  # the source chooses by B * heads
-                staged = B * heads >= lib.session_attention_staged_min_pairs()
+            if variant is None:  # the source chooses by B, N and heads
+                staged = bool(lib.session_attention_takes_staged(B, N, heads))
                 err = lib.session_attention_forward(*args, stream)
             else:
                 staged = variant == "staged"
@@ -215,6 +223,15 @@ def session_attention_variant(
     if variant not in ("warp", "staged"):
         raise ValueError(f"variant must be 'warp' or 'staged', got {variant!r}")
     return _launch(q, k, v, adj, heads, dropout_p, seed & 0xFFFFFFFFFFFFFFFF, variant)
+
+
+def session_attention_launch_floor(B: int, N: int, heads: int, head_dim: int) -> None:
+    """Launch an empty kernel with the grid, block and shared memory that the
+    ``"warp"`` forward takes at this shape, on the current CUDA stream: what a
+    launch costs before any work. For measuring; the port never calls it."""
+    err = _lib().session_attention_launch_floor(
+        B, N, heads, head_dim, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "session_attention_launch_floor")
 
 
 def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None):

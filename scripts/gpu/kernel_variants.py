@@ -2,18 +2,23 @@
 """Time edited variants of a CUDA kernel source against the shipped one, on one NVIDIA GPU.
 
     python3 scripts/gpu/kernel_variants.py score '{"two_blocks": [["__launch_bounds__(kTileThreads, 1)", "__launch_bounds__(kTileThreads, 2)"]]}'
-    python3 scripts/gpu/kernel_variants.py attn  '{"no_softmax": [["i0 < N; i0 += 2 * n_warps", "i0 < N - 64; i0 += 2 * n_warps"]]}'
+    python3 scripts/gpu/kernel_variants.py attn  scripts/gpu/variants/attn.json
+    python3 scripts/gpu/kernel_variants.py bwd   scripts/gpu/variants/bwd.json
 
-A variant is a name and a list of [old, new] text substitutions applied to
+The variants are one JSON object, given as text or as the path of a file
+(scripts/gpu/variants/ holds the sets whose times PERF.md quotes). A variant
+is a name and a list of [old, new] text substitutions applied to
 gat_recommendation_torch/csrc/score_chunkmax.cu ("score") or
-session_attention.cu ("attn"); a first pair ["FILE", path] takes a whole
-other source instead. The variant "shipped" (no substitution) is always
+session_attention.cu ("attn": the forward kernels, "bwd": the backward); a
+first pair ["FILE", path] takes a whole other source instead. The variant "shipped" (no substitution) is always
 added. Every variant is compiled with the port's nvcc flags into
 build/kernel_variants/ (all at once), loaded with ctypes and called through
 the batch entry point (`*_forward_variant` with the batch kernel named) on
 the shapes the training path uses: scoring at B = 512 (and 8, 64, 128) over
 the full 467,456 x 256 table, the attention forward at B = 512, N in {56, 32,
-16, 8}, 2 heads of 128, dropout 0.1. Printed per variant: ptxas registers and
+16, 8}, 2 heads of 128, dropout 0.1 (the row kernel also at B = 1, the serving
+shape), the attention backward at the same B = 512 shapes (adjacency density
+0.3, and 0.0025 at N = 56). Printed per variant: ptxas registers and
 spills of the batch kernel, whether the result is within the smoke test's
 tolerance of the plain PyTorch version, its largest error, and device ms per
 call (CUDA graph of calls, median of replays, as chip_smoke.py times). A
@@ -36,7 +41,7 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import ATTN_TOL, DIM, HEADS, NUM_ITEMS, ROWS, SCORE_TOL, device_ms, nvidia_smi  # noqa: E402
+from chip_smoke import ATTN_GRAD_TOL, ATTN_TOL, DIM, HEADS, NUM_ITEMS, ROWS, SCORE_TOL, device_ms, nvidia_smi  # noqa: E402
 from gat_recommendation_torch.ops import _build  # noqa: E402
 from gat_recommendation_torch.ops.score_chunkmax import score_chunkmax_reference  # noqa: E402
 from gat_recommendation_torch.ops.session_attention import (  # noqa: E402
@@ -45,7 +50,11 @@ from gat_recommendation_torch.ops.session_attention import (  # noqa: E402
 )
 
 OUT = REPO / "build" / "kernel_variants"
-SOURCES = {"score": ("score_chunkmax", "tile_kernel"), "attn": ("session_attention", "staged_kernelILb1ELi4")}
+SOURCES = {
+    "score": ("score_chunkmax", "tile_kernel"),
+    "attn": ("session_attention", "staged_kernelILb1ELi4"),
+    "bwd": ("session_attention", "backward_kernelILi4"),
+}
 
 
 def build_variants(source: str, kernel_tag: str, variants: dict) -> dict:
@@ -132,20 +141,67 @@ def time_attention(libs: dict, gen: torch.Generator) -> None:
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]
             row = {"variant": name, "B": B, "N": N, "library_ms": sdpa}
-            for staged in (1, 0):
+            for staged, batch in ((1, B), (0, B), (0, 1)):
                 def run():
-                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(), B, N,
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(), batch, N,
                              HEADS, d, math.sqrt(d), 1.0 - p_drop, keep_threshold(p_drop), seed, staged,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError_t {err}")
 
+                out.zero_()
                 run()
                 torch.cuda.synchronize()
-                key = "staged" if staged else "warp"
-                row[f"{key}_within_tolerance"] = torch.allclose(out, want, **ATTN_TOL)
+                key = ("staged" if staged else "warp") + ("" if batch == B else f"_B{batch}")
+                row[f"{key}_within_tolerance"] = torch.allclose(out[:batch], want[:batch], **ATTN_TOL)
                 row[f"{key}_ms"] = device_ms(run)
             print(json.dumps(row), flush=True)
+
+
+def time_backward(libs: dict, gen: torch.Generator) -> None:
+    dev = torch.device("cuda")
+    B, d, p_drop, seed = 512, DIM // HEADS, 0.1, 5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # density 0.3 as in the smoke test's checks, and at N = 56 the density of its training batches
+    for N, density in ((56, 0.3), (56, 0.0025), (32, 0.3), (16, 0.3), (8, 0.3)):
+        q, k, v, dout = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(4))
+        adj = torch.rand(B, N, N, device=dev, generator=gen) < density
+        adj[:, 0] = False
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(
+            session_attention_reference(*leaves, adj, HEADS, p_drop, seed), leaves, dout)
+        heads_first = [t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v, dout)]
+
+        def library(backward: bool):
+            ins = [t.detach().requires_grad_(backward) for t in heads_first[:3]]
+            out = sdpa(*ins, attn_mask=adj[:, None], dropout_p=p_drop)
+            if backward:
+                torch.autograd.grad(out, ins, heads_first[3])
+
+        library_ms = device_ms(lambda: library(True)) - device_ms(lambda: library(False))
+        got = [torch.empty_like(q) for _ in range(3)]
+        for name, lib in libs.items():
+            fn = lib.session_attention_backward
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p]
+
+            def run():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), dout.data_ptr(),
+                         *(t.data_ptr() for t in got), B, N, HEADS, d, math.sqrt(d), 1.0 - p_drop,
+                         keep_threshold(p_drop), seed, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError_t {err}")
+
+            for t in got:
+                t.zero_()
+            run()
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "variant": name, "B": B, "N": N, "density": density, "library_ms": library_ms,
+                "within_tolerance": all(torch.allclose(g, w, **ATTN_GRAD_TOL) for g, w in zip(got, want)),
+                "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+                "ms": device_ms(run),
+            }), flush=True)
 
 
 def main() -> int:
@@ -157,11 +213,12 @@ def main() -> int:
         return 1
     print(nvidia_smi())
     torch.backends.cuda.matmul.allow_tf32 = False
-    variants = {"shipped": [], **(json.loads(sys.argv[2]) if len(sys.argv) == 3 else {})}
+    given = sys.argv[2] if len(sys.argv) == 3 else "{}"
+    variants = {"shipped": [], **json.loads(Path(given).read_text() if given.endswith(".json") else given)}
     source, kernel_tag = SOURCES[sys.argv[1]]
     libs = build_variants(source, kernel_tag, variants)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    (time_scoring if sys.argv[1] == "score" else time_attention)(libs, gen)
+    {"score": time_scoring, "attn": time_attention, "bwd": time_backward}[sys.argv[1]](libs, gen)
     return 0
 
 

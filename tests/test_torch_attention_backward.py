@@ -73,6 +73,42 @@ def test_attention_gradients_match_jax_grad_with_the_same_keep_mask(B, N, heads,
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize(
+    "B,N,heads,d,density",
+    [(2, 64, 2, 32, 0.3),   # the largest N the kernels take
+     (2, 7, 2, 32, 0.5),    # ragged N, below one row group and one 4 x 4 tile
+     (1, 64, 1, 128, 0.02),  # the widest head, almost no edge: tiles and rows skipped
+     (2, 56, 2, 32, 1.1),   # every edge present
+     (2, 17, 1, 32, 0.05),  # just past the 2 x 2-tile kernels (N <= 16)
+     (2, 16, 2, 128, 0.9)],
+)
+def test_attention_gradients_match_jax_grad_at_the_shapes_the_kernels_special_case(B, N, heads, d, density, rate):
+    """The plain version is the yardstick the CUDA kernels are held to on the
+    card; here it is held to jax.grad where the kernels change their tiling
+    (N <= 16, N = 64, N off a multiple of 4 or 8), at d = 32 and 128 and at
+    densities near 0 and 1."""
+    q, k, v, adj, dout = _inputs(B, N, heads, d, seed=N + d, density=density)
+    seed = 0xC0FFEE_0000_0002
+    keep = sa.dropout_keep_mask((B, heads, N, N), rate, seed, "cpu").numpy() if rate else None
+    out, grads = _torch_grads(
+        lambda a, b, c: sa.session_attention(a, b, c, torch.from_numpy(adj), heads, rate, seed),
+        q, k, v, dout)
+    dq, dk, dv = sa.session_attention_backward(
+        *(torch.from_numpy(a) for a in (q, k, v, adj, dout)), heads, rate, seed)
+
+    def scalar(a, b, c):
+        return jnp.sum(_jax_attention(a, b, c, jnp.asarray(adj), heads, keep, rate) * dout)
+
+    want_out = _jax_attention(*map(jnp.asarray, (q, k, v, adj)), heads, keep, rate)
+    want = jax.grad(scalar, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), **TOL)
+    for g, direct, w, name in zip(grads, (dq, dk, dv), want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
+        assert torch.equal(g, direct)  # the function the autograd node calls, on CPU tensors
+    assert torch.all(out[:, 0] == 0) and torch.all(grads[0][:, 0] == 0)
+
+
 def test_written_out_jax_attention_is_the_layers_core():
     """With an identity skip and no dropout the written-out core reproduces
     transformer_conv's attention term, so the comparison above holds the port

@@ -19,10 +19,14 @@ draws the same rounding bits).
 
 Each wrapper holds two kernels and chooses by shape: scoring by B (one warp
 per chunk below ``TILE_MIN_BATCH`` sessions, the tiled product from there up),
-the attention forward by B * heads (one warp per destination below
-``STAGED_MIN_PAIRS``, one block per session and head from there up). The
-cases below reach both sides by their shapes, and the second launch counter
-of each wrapper says which kernel ran.
+the attention forward by the blocks its first kernel would need (one warp
+per destination, four destinations to a block, below ``STAGED_MIN_ROW_BLOCKS``
+blocks, ``STAGED_MIN_ROW_BLOCKS_WIDE`` above 32 nodes; one block per session
+and head from there up). The cases below reach both sides by their shapes,
+and the second launch counter of each wrapper says which kernel ran. The
+attention backward is one kernel (one block per session and head) whose
+product passes take 2 x 2 tiles up to N = 16 and 4 x 4 tiles above; its cases
+stand on both sides of that, on and off multiples of 4 and 8 nodes.
 """
 
 import numpy as np
@@ -41,7 +45,13 @@ SCORE_TOL = dict(rtol=1e-5, atol=1e-4)
 TABLE_TOL = dict(rtol=1e-6, atol=1e-7)
 HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-5)
 TILE_MIN_BATCH = 6  # kTileMinBatch of csrc/score_chunkmax.cu
-STAGED_MIN_PAIRS = 64  # kStagedMinPairs of csrc/session_attention.cu
+# kStagedMinRowBlocks (N <= 32), kStagedMinRowBlocksWide (N > 32) and kRowWarps of csrc/session_attention.cu
+STAGED_MIN_ROW_BLOCKS, STAGED_MIN_ROW_BLOCKS_WIDE, ROW_WARPS = 1024, 448, 4
+
+
+def _takes_staged(B, N, heads):
+    blocks = B * heads * -(-N // ROW_WARPS)
+    return blocks >= (STAGED_MIN_ROW_BLOCKS if N <= 32 else STAGED_MIN_ROW_BLOCKS_WIDE)
 
 
 @pytest.fixture
@@ -65,9 +75,13 @@ def _attn_inputs(dev, B, N, HD, seed=0, density=0.35):
 @pytest.mark.parametrize(
     "B,N,heads,HD",
     [(1, 8, 2, 256), (1, 56, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 256), (2, 33, 1, 96),
-     # one block per (b, h): B * heads >= STAGED_MIN_PAIRS
-     (512, 56, 2, 256), (512, 8, 2, 256), (70, 1, 1, 4), (40, 7, 2, 64), (16, 64, 4, 512),
-     (32, 16, 2, 256), (32, 17, 2, 200), (33, 33, 2, 24), (31, 56, 2, 256), (32, 56, 2, 256)],
+     # one block per (b, h) from the stated row blocks up: 16 sessions at N = 56, 256 at N = 8
+     (512, 56, 2, 256), (512, 8, 2, 256), (1100, 1, 1, 4), (300, 7, 2, 64), (16, 64, 4, 512),
+     (128, 16, 2, 256), (128, 17, 2, 200), (33, 33, 2, 24), (16, 56, 2, 256), (256, 8, 2, 256),
+     # four destinations to a block below that, N on and off a multiple of 4
+     (15, 56, 2, 256), (255, 8, 2, 256), (70, 1, 1, 4), (40, 7, 2, 64), (32, 16, 2, 256), (31, 56, 1, 128),
+     (1, 16, 2, 256), (1, 32, 2, 256), (1, 64, 2, 256), (1, 5, 2, 64), (8, 56, 2, 256), (8, 7, 2, 64),
+     (31, 7, 2, 64), (31, 33, 1, 128), (8, 3, 4, 16)],
 )
 def test_session_attention_kernel_matches_plain(cuda, B, N, heads, HD):
     q, k, v, adj = _attn_inputs(cuda, B, N, HD)
@@ -75,7 +89,7 @@ def test_session_attention_kernel_matches_plain(cuda, B, N, heads, HD):
     got = sa.session_attention(q, k, v, adj, heads)
     torch.cuda.synchronize()
     assert sa.session_attention.launches == before + 1
-    assert sa.session_attention.staged_launches - staged == int(B * heads >= STAGED_MIN_PAIRS)
+    assert sa.session_attention.staged_launches - staged == int(_takes_staged(B, N, heads))
     want = sa.session_attention_reference(q, k, v, adj, heads)
     torch.testing.assert_close(got, want, **ATTN_TOL)
     assert torch.all(got[:, 0] == 0)
@@ -274,6 +288,96 @@ def test_session_attention_forward_and_backward_match_plain(cuda, B, N, heads, H
     for got, want in zip(grads[0][1:], grads[1][1:]):
         torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)
     assert torch.all(grads[0][0][:, 0] == 0) and torch.all(grads[0][1][:, 0] == 0)
+
+
+def _backward_both(dev, q, k, v, adj, heads, dropout_p, seed):
+    dout = torch.from_numpy(
+        np.random.default_rng(9).standard_normal(tuple(q.shape)).astype(np.float32)).to(dev)
+    got = sa.session_attention_backward(q, k, v, adj, dout, heads, dropout_p, seed)
+    again = sa.session_attention_backward(q, k, v, adj, dout, heads, dropout_p, seed)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        sa.session_attention_reference(*leaves, adj, heads, dropout_p, seed), leaves, dout)
+    torch.cuda.synchronize()
+    return got, again, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize(
+    "B,N,heads,HD",
+    [(512, 56, 2, 256), (512, 8, 2, 256), (3, 7, 2, 64), (3, 7, 2, 256), (2, 56, 4, 128), (2, 64, 2, 64),
+     (2, 64, 2, 256), (4, 16, 2, 256), (4, 17, 2, 256), (4, 16, 2, 64), (4, 17, 2, 64), (9, 33, 1, 128),
+     (1, 1, 1, 4), (300, 12, 1, 32)],
+)
+def test_attention_backward_kernel_matches_plain_and_repeats_its_bits(cuda, B, N, heads, HD, dropout_p):
+    """Ragged N (7, 33, 56, 64), head widths 32 and 128, both tile sizes of the
+    product passes (N <= 16 and above); no atomics, so two runs give equal bits."""
+    q, k, v, adj = _attn_inputs(cuda, B, N, HD, seed=N)
+    before = sa.session_attention.backward_launches
+    got, again, want = _backward_both(cuda, q, k, v, adj, heads, dropout_p, 0x0BAD_5EED_0000_0001)
+    assert sa.session_attention.backward_launches == before + 2
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, **ATTN_GRAD_TOL)
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+    assert torch.all(got[0][:, 0] == 0)  # dq of the isolated destination
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("B,N,heads,HD,density", [(6, 56, 2, 256, 0.02), (6, 56, 2, 256, 1.1), (6, 16, 2, 64, 0.02),
+                                                  (6, 64, 1, 128, 1.1)])
+def test_attention_backward_gives_exact_zeros_where_nothing_attends(cuda, B, N, heads, HD, density, dropout_p):
+    """A session without any edge: dq, dk and dv all exactly zero. A destination
+    without in-edges: its dq exactly zero. A source nobody attends to: its dk
+    and dv exactly zero. At densities near 0 (tiles and rows skipped) and 1."""
+    q, k, v, adj = _attn_inputs(cuda, B, N, HD, seed=3, density=density)
+    adj[1] = False
+    adj[2, N // 2, :] = False
+    adj[3, :, N - 1] = False
+    got, again, want = _backward_both(cuda, q, k, v, adj, heads, dropout_p, 17)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, **ATTN_GRAD_TOL)
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        assert torch.isfinite(g).all() and torch.all(g[1] == 0)
+    dq, dk, dv = got
+    assert torch.all(dq[:, 0] == 0) and torch.all(dq[2, N // 2] == 0)
+    assert torch.all(dk[3, N - 1] == 0) and torch.all(dv[3, N - 1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("B,N", [(1, 8), (1, 56), (8, 56), (31, 56), (31, 7), (8, 64)])
+def test_row_forward_kernel_at_serving_batches(cuda, B, N, dropout_p):
+    """The kernel for few sessions, named outright and, where the wrapper
+    takes it, through the wrapper: the same bits both ways, within ATTN_TOL of
+    the plain version."""
+    q, k, v, adj = _attn_inputs(cuda, B, N, 256, seed=B + N)
+    staged = sa.session_attention.staged_launches
+    named = sa.session_attention_variant(q, k, v, adj, 2, dropout_p, 21, "warp")
+    chosen = sa.session_attention(q, k, v, adj, 2, dropout_p, 21)
+    torch.cuda.synchronize()
+    assert sa.session_attention.staged_launches - staged == int(_takes_staged(B, N, 2))
+    if not _takes_staged(B, N, 2):
+        assert torch.equal(named, chosen)
+    want = sa.session_attention_reference(q, k, v, adj, 2, dropout_p, 21)
+    torch.testing.assert_close(named, want, **ATTN_TOL)
+    torch.testing.assert_close(chosen, want, **ATTN_TOL)
+    assert torch.all(named[:, 0] == 0)
+    sa.session_attention_launch_floor(B, N, 2, 128)  # the empty twin launches at the same shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["warp", "staged"])
+def test_forward_kernels_repeat_their_bits_with_every_sm_busy(cuda, variant):
+    """Many more blocks than the card holds at once: a block that read a tile
+    before its copy had landed would show as bits that change between runs."""
+    q, k, v, adj = _attn_inputs(cuda, 512, 56, 256, seed=6)
+    runs = [sa.session_attention_variant(q, k, v, adj, 2, 0.1, 33, variant) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(runs[0], sa.session_attention_reference(q, k, v, adj, 2, 0.1, 33), **ATTN_TOL)
+    assert all(torch.equal(r.view(torch.int32), runs[0].view(torch.int32)) for r in runs[1:])
 
 
 @pytest.mark.cuda

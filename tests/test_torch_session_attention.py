@@ -5,9 +5,9 @@ against the JAX Pallas kernel in interpret mode and against the attention
 core of the JAX ``transformer_conv``. Tolerance rtol 1e-5 / atol 1e-6: both
 sides are float32 and differ only in summation order.
 
-The batch cases put ``B * heads`` on both sides of the size from which the
-card's wrapper takes its one-block-per-session kernel (64), at node counts
-on and off that kernel's tile sizes; ``tests/test_torch_kernels_on_card.py``
+The batch cases stand on both sides of the size from which the card's
+wrapper takes its one-block-per-session kernel (1024 blocks of four
+destinations, 448 above 32 nodes), at node counts on and off that kernel's tile sizes; ``tests/test_torch_kernels_on_card.py``
 runs the same shapes on the card. Here the wrapper runs its plain version.
 """
 
@@ -61,10 +61,35 @@ def test_matches_pallas_kernel_and_xla_core(heads, N, B):
 
 
 @pytest.mark.parametrize("N", [1, 7, 56, 64])
-@pytest.mark.parametrize("B,heads,HD", [(3, 2, 16), (31, 2, 24), (32, 2, 16), (70, 1, 8), (17, 4, 32)])
+@pytest.mark.parametrize("B,heads,HD", [(3, 2, 16), (31, 2, 24), (32, 2, 16), (70, 1, 8), (17, 4, 32)])  # 3..1120 row blocks
 def test_batches_around_the_staged_size_match_pallas_kernel_and_xla_core(B, heads, HD, N):
     q, k, v, adj = _inputs(N + B, B, N, HD)
     adj[:, 0, :] = False  # an isolated destination in every session
+    got = _port(q, k, v, adj, heads)
+    pallas = fused_session_attention(
+        *(jnp.asarray(a) for a in (q, k, v, adj)), heads=heads, interpret=True
+    )
+    core = _jax_core(*(jnp.asarray(a) for a in (q, k, v, adj)), heads)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(core), rtol=1e-5, atol=1e-6)
+    assert np.all(got[:, 0] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "B,N,heads,HD,density",
+    [(1, 5, 2, 64, 0.9),     # one row group of four destinations and one more
+     (1, 33, 2, 256, 0.05),  # sources on both halves of a warp, almost no edge
+     (8, 4, 2, 64, 1.1),     # exactly one row group, every edge
+     (31, 3, 1, 32, 0.5),    # a small batch of sessions shorter than a group
+     (1, 64, 2, 256, 1.1)],  # the serving shape at its widest: N = 64, d = 128, dense
+)
+def test_serving_batches_match_pallas_kernel_and_xla_core_at_row_group_edges(B, N, heads, HD, density):
+    """Below the staged size the card's wrapper gives four destinations of a
+    session and head to a block; the plain version that kernel is held to on
+    the card is held to the JAX kernel here at node counts on and off that
+    group, at head widths 32 and 128 and densities near 0 and 1."""
+    q, k, v, adj = _inputs(N + HD, B, N, HD, density)
+    adj[:, 0, :] = False
     got = _port(q, k, v, adj, heads)
     pallas = fused_session_attention(
         *(jnp.asarray(a) for a in (q, k, v, adj)), heads=heads, interpret=True
