@@ -41,7 +41,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
      467,456 x 256 table, float32 moments and bfloat16 moments with
      stochastic rounding (moments bit-equal); the score kernel at the eval
      batch of 512, also with a [B, V] exclusion mask. Times, bounds and
-     library yardsticks as in phase 3.
+     library yardsticks as in phase 3. The three lazy AdamW kernels at full
+     width, float32 moments and bfloat16 moments with stochastic rounding,
+     rows 0 .. 65 and several hundred steps behind, uid 0 and a sentinel
+     tail: weights TABLE_TOL, moments and last_step equal, rows outside uid
+     unchanged; materialize timed from single calls on a restored state.
   8. the training slice at full width: seeded synthetic sessions through
      SessionDataset and iterate_batches(batch_size=512), a Trainer epoch of
      6 sparse steps over all four buckets, 6 more sparse steps on one batch
@@ -52,10 +56,18 @@ Phases, each fatal on failure (nothing is caught and carried on):
      2 attention backward and 1 sparse AdamW per sparse step; 2, 2 and 1
      dense AdamW per dense step; 2 attention forward and 1 scoring launch
      per eval batch; every attention forward through the staged kernel and
-     the eval batch's scoring through the tiled one.
+     the eval batch's scoring through the tiled one. Then the main training
+     path, the lazy optimizer through Trainer.train(): 3 epochs of those 6
+     batches with an evaluation each, counted (per step 2 attention forward,
+     2 backward, 1 gather and 1 touched update, no sparse AdamW; per
+     evaluation 1 materialize); a 2-epoch run resumed to epoch 3 with the
+     same losses and metrics; the seconds and bytes of every checkpoint
+     save and restore; a Recommender on the best checkpoint; two lazy steps
+     against a CPU copy; six lazy and six eager steps after materialize.
   9. a torch.profiler breakdown of sparse train steps, and the attention
      kernels timed once more at a training batch's own adjacency (sparser
-     than the 0.3 of phase 7), with that density and its bound.
+     than the 0.3 of phase 7), with that density and its bound; beside them
+     lazy steps (rows a few steps behind, then 1,000) and one materialize.
  10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -88,6 +100,14 @@ from gat_recommendation_torch.ops import _build
 from gat_recommendation_torch.ops.embedding_adamw import (
     embedding_adamw,
     embedding_adamw_reference,
+)
+from gat_recommendation_torch.ops.lazy_adamw import (
+    gather_catch_up,
+    gather_catch_up_reference,
+    materialize,
+    materialize_reference,
+    touched_update_scatter,
+    touched_update_scatter_reference,
 )
 from gat_recommendation_torch.ops.score_chunkmax import (
     score_chunkmax,
@@ -139,6 +159,16 @@ NUM_SESSIONS = 4000
 # m / (sqrt(v) + eps) turns its relative error into a share of lr = 1e-3, so the
 # row tolerance holds for all but 1 entry in 10,000 and a tenth of lr caps the rest.
 TRAIN_LOSS_TOL, TRAIN_ROW_TOL, TRAIN_ROW_CAP = 1e-4, 1e-5, 1e-4
+# The lazy kernels' checks: the step after which the state stands, and the
+# steps each row lags behind it (0 .. 65, and several hundred: the series
+# stops at 64 terms).
+LAZY_COUNT = 1000
+LAZY_GAPS = list(range(66)) + [200, 300, 700]
+# Lazy against eager sparse steps after materialize (the JAX package's
+# tests/test_lazy_adamw.py bar): tail truncation and summation order.
+LAZY_TABLE_TOL = dict(rtol=1e-3, atol=2e-6)
+# A resumed lazy train() against an uninterrupted one: train losses.
+RESUME_LOSS_RTOL = 1e-5
 
 REPLACES = {
     "session_attention": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
@@ -146,6 +176,10 @@ REPLACES = {
     "score_chunkmax": "gat_recommendation_tpu/ops/pallas/score_chunkmax.py:57",
     "sparse_adamw": "gat_recommendation_tpu/ops/pallas/sparse_adamw.py:117",
     "embedding_adamw": "gat_recommendation_tpu/ops/pallas/embedding_adamw.py:90",
+    # No Pallas source (XLA fuses this work in the JAX package): the JAX functions they stand for.
+    "lazy_gather_catch_up": "gat_recommendation_tpu/train/optimizers.py:259",
+    "lazy_touched_update": "gat_recommendation_tpu/train/optimizers.py:280",
+    "lazy_materialize": "gat_recommendation_tpu/train/optimizers.py:312",
 }
 SOURCES = {
     "session_attention": "gat_recommendation_torch/csrc/session_attention.cu",
@@ -153,6 +187,9 @@ SOURCES = {
     "score_chunkmax": "gat_recommendation_torch/csrc/score_chunkmax.cu",
     "sparse_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
     "embedding_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
+    "lazy_gather_catch_up": "gat_recommendation_torch/csrc/lazy_adamw.cu",
+    "lazy_touched_update": "gat_recommendation_torch/csrc/lazy_adamw.cu",
+    "lazy_materialize": "gat_recommendation_torch/csrc/lazy_adamw.cu",
 }
 
 
@@ -543,12 +580,21 @@ class _Req:
         self.session_items, self.k = items, k
 
 
+def device_rows(prof) -> list:
+    """The device's own operations of a torch.profiler trace, by name. A user
+    annotation (``Optimizer.step#AdamW.step``) also carries a device span,
+    which covers kernels already counted and the gaps between them: left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_requests(rec: Recommender, requests: list) -> dict:
     """Where a request's time goes: the wall time of `Recommender.recommend`
     over the requests (unprofiled, synchronised by its own readback), and
     from a torch.profiler trace of the same requests the card's busy time
     and its kernels by device time. Idle share = 1 - busy / wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for v in requests:
@@ -562,7 +608,7 @@ def profile_requests(rec: Recommender, requests: list) -> dict:
         for v in requests:
             rec.recommend(v)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_us = sum(e.self_device_time_total for e in rows) / len(requests)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
     return {
@@ -799,6 +845,154 @@ def check_embedding_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stoch
     }
 
 
+def reset_ms(fn, reset, reps: int) -> float:
+    """Median CUDA-event time of one call of fn, in ms, with `reset` (not
+    timed) before each call: for a kernel whose work depends on state that a
+    call changes (materialize leaves every row current). One warm-up call."""
+    times = []
+    for _ in range(reps + 1):
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two float32 or
+    bfloat16 tensors of one sign pattern (0 where the bits are equal)."""
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return int((a.view(bits).long() - b.view(bits).long()).abs().max())
+
+
+def _lazy_inputs(gen: torch.Generator, moment_dtype: torch.dtype):
+    """Full-width table, moments and last_step (each row LAZY_GAPS steps
+    behind LAZY_COUNT - 1; one row in 16 with zero moments, as never
+    touched), U = 16384 slots of 12,000 unique rows with row 0 and a sentinel
+    tail, and their summed gradients."""
+    dev = torch.device("cuda")
+    U, n_unique = 16384, 12000
+    table, mu, nu = _table_state(gen, moment_dtype)
+    table[0], mu[0], nu[0] = 0.0, 0.0, 0.0
+    mu[1::16], nu[1::16] = 0.0, 0.0  # rows never touched: the kernels skip their series
+    gaps = torch.tensor(LAZY_GAPS, device=dev)
+    lag = gaps[torch.randint(len(LAZY_GAPS), (ROWS,), device=dev, generator=gen)]
+    last = (LAZY_COUNT - 1 - lag).clamp_min(0).int()
+    ids = torch.randperm(NUM_ITEMS - 1, device=dev, generator=gen)[: n_unique - 1] + 1
+    uid = torch.full((U,), 2**31 - 1, dtype=torch.int32, device=dev)
+    uid[:n_unique] = torch.cat([torch.zeros(1, device=dev, dtype=torch.long), ids.sort().values]).int()
+    summed = 1e-3 * torch.randn(U, DIM, device=dev, generator=gen)
+    summed[0] = 0.0
+    summed[n_unique:] = 0.0
+    return (table, mu, nu, last), uid, summed, n_unique
+
+
+def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool) -> dict:
+    """The three lazy AdamW kernels against their plain versions at full
+    width: weights TABLE_TOL; moments and last_step equal (float32 moments:
+    expf against torch's CUDA exp, measured in ulp); rows outside uid
+    bit-unchanged; sentinel slots zero. Times as for the other AdamW kernels;
+    materialize, whose work a call uses up, from single calls with the state
+    restored before each."""
+    state, uid, summed, n_unique = _lazy_inputs(gen, moment_dtype)
+    table, mu, nu, last = state
+    label = f"moments={str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}"
+    m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
+    row_bytes = DIM * (4 + 2 * m_bytes)  # a table row and its two moments
+    rows = {}
+
+    # Gather and catch-up.
+    got = gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW)
+    want = gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+    ulp = max(max_ulp(got[1], want[1]), max_ulp(got[2], want[2]))
+    if ulp:
+        raise AssertionError(f"lazy_gather_catch_up: moments differ from the plain version's by {ulp} ulp")
+    if not all(torch.all(t[n_unique:] == 0) for t in got):
+        raise AssertionError("lazy_gather_catch_up: sentinel slots must hold zeros")
+    real = uid[:n_unique].long()
+    terms = (LAZY_COUNT - 1 - last[real]).clamp(0, 64)
+    # The series' operations: about 6 an element and term, for elements whose mu is not 0.
+    live = (mu != 0).sum(1)
+    bound, bound_by = bound_ms(n_unique * (row_bytes + 4) + 4 * uid.numel() + 3 * 4 * uid.numel() * DIM,
+                               6 * int((terms * live[real]).sum()))
+    rows["lazy_gather_catch_up"] = {
+        "shape": f"V={ROWS} D={DIM} U={uid.numel()} unique={n_unique} {label}",
+        "max_abs_err": (got[0] - want[0]).abs().max().item(), "moment_max_ulp": ulp,
+        "terms_mean": terms.float().mean().item(),
+        **timings(lambda: gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW),
+                  lambda: gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW), None,
+                  calls=10, reps=5, eager_reps=10),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+    # Touched update and scatter, on copies.
+    kern = [t.clone() for t in state]
+    plain = [t.clone() for t in state]
+    touched_update_scatter(*kern, uid, *got, summed, LAZY_COUNT, stochastic_rounding=stochastic, **ADAMW)
+    touched_update_scatter_reference(*plain, uid, *got, summed, LAZY_COUNT, stochastic_rounding=stochastic,
+                                     **ADAMW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    if not all(_same_bits(a, b) for a, b in zip(kern[1:], plain[1:])):
+        raise AssertionError("lazy_touched_update: moments or last_step differ from the plain version's")
+    outside = torch.ones(ROWS, dtype=torch.bool, device=table.device)
+    outside[real] = False
+    if not all(_same_bits(a[outside], b[outside]) for a, b in zip(kern, state)):
+        raise AssertionError("lazy_touched_update: a row outside uid changed")
+    if not bool(torch.all(kern[3][real] == LAZY_COUNT)):
+        raise AssertionError("lazy_touched_update: last_step of the uid rows must be the count")
+    bound, bound_by = bound_ms(n_unique * (4 * 4 * DIM + row_bytes + 4) + 4 * uid.numel(), 16 * DIM * n_unique)
+    rows["lazy_touched_update"] = {
+        "shape": f"V={ROWS} D={DIM} U={uid.numel()} unique={n_unique} {label}",
+        "max_abs_err": (kern[0] - plain[0]).abs().max().item(),
+        **timings(lambda: touched_update_scatter(*kern, uid, *got, summed, LAZY_COUNT,
+                                                 stochastic_rounding=stochastic, **ADAMW),
+                  lambda: touched_update_scatter_reference(*plain, uid, *got, summed, LAZY_COUNT,
+                                                           stochastic_rounding=stochastic, **ADAMW),
+                  None, calls=10, reps=5, eager_reps=10),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    del plain, got, want
+
+    # Materialize every row to LAZY_COUNT, on copies.
+    kern = [t.clone() for t in state]
+    plain = [t.clone() for t in state]
+    materialize(*kern, LAZY_COUNT, stochastic_rounding=stochastic, **ADAMW)
+    materialize_reference(*plain, LAZY_COUNT, stochastic_rounding=stochastic, **ADAMW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern[0], plain[0], **TABLE_TOL)
+    ulp = max(max_ulp(kern[1], plain[1]), max_ulp(kern[2], plain[2]))
+    if ulp or not torch.equal(kern[3], plain[3]) or not bool(torch.all(kern[3] == LAZY_COUNT)):
+        raise AssertionError(f"lazy_materialize: moments ({ulp} ulp) or last_step differ from the plain version's")
+    err = (kern[0] - plain[0]).abs().max().item()
+    del plain
+    lag = (LAZY_COUNT - last).clamp_min(0)
+    behind = int((lag > 0).sum())
+    bound, bound_by = bound_ms(2 * behind * row_bytes + 2 * 4 * ROWS, 6 * int((lag.clamp_max(64) * live).sum()))
+
+    def restore():
+        for dst, src in zip(kern, state):
+            dst.copy_(src)
+
+    rows["lazy_materialize"] = {
+        "shape": f"V={ROWS} D={DIM} rows_behind={behind} {label}",
+        "max_abs_err": err, "moment_max_ulp": ulp,
+        "terms_mean": lag.clamp_max(64).float().mean().item(),
+        "ms": reset_ms(lambda: materialize(*kern, LAZY_COUNT, stochastic_rounding=stochastic, **ADAMW),
+                       restore, reps=10),
+        "plain_ms": reset_ms(lambda: materialize_reference(*kern, LAZY_COUNT, stochastic_rounding=stochastic,
+                                                           **ADAMW), restore, reps=2),
+        "library_ms": None,
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the training slice at full width
 # ---------------------------------------------------------------------------
@@ -843,6 +1037,9 @@ def launch_counts() -> dict:
         "score_chunkmax_tile": score_chunkmax.tile_launches,
         "sparse_adamw": sparse_adamw.launches,
         "embedding_adamw": embedding_adamw.launches,
+        "lazy_gather_catch_up": gather_catch_up.launches,
+        "lazy_touched_update": touched_update_scatter.launches,
+        "lazy_materialize": materialize.launches,
     }
 
 
@@ -851,6 +1048,7 @@ def reset_launch_counts() -> None:
     session_attention.backward_launches = 0
     score_chunkmax.launches = score_chunkmax.tile_launches = 0
     sparse_adamw.launches = embedding_adamw.launches = 0
+    gather_catch_up.launches = touched_update_scatter.launches = materialize.launches = 0
 
 
 def expect_launches(what: str, **want) -> dict:
@@ -878,8 +1076,9 @@ def near_tie_agree(got, want, tol: float) -> None:
         raise AssertionError("eval top-k ids differ from the dense oracle's without a near-tie")
 
 
-def train_full_width() -> dict:
-    dev = torch.device("cuda")
+def training_batches() -> tuple[dict, list]:
+    """The seeded corpus's batches of 512 by node bucket, and the six that
+    make a training epoch here (one of every bucket, two more)."""
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
     dataset = make_dataset(rng)
@@ -889,7 +1088,12 @@ def train_full_width() -> dict:
         raise AssertionError(f"batches cover buckets {[n for n in BUCKETS if by_bucket[n]]}, want {BUCKETS}")
     log(f"[phase 8] {len(dataset)} sessions, {len(batches)} batches of {TRAIN_BATCH} "
         f"({ {n: len(v) for n, v in by_bucket.items()} }) assembled in {time.perf_counter() - t0:.1f} s")
-    epoch = [by_bucket[n][0] for n in BUCKETS] + [by_bucket[8][-1], by_bucket[16][-1]]
+    return by_bucket, [by_bucket[n][0] for n in BUCKETS] + [by_bucket[8][-1], by_bucket[16][-1]]
+
+
+def train_full_width(by_bucket: dict, epoch: list) -> dict:
+    """The eager sparse and the dense paths (lazy=False)."""
+    dev = torch.device("cuda")
     loss_fn = create_loss_function("dual")
     model = make_training_model(DROPOUT)
     if model.item_embedding.device.type != "cuda":
@@ -965,17 +1169,19 @@ def train_full_width() -> dict:
     }
 
 
-def compare_with_cpu_copy(batches: list, loss_fn) -> dict:
+def compare_with_cpu_copy(batches: list, loss_fn, lazy: bool = False) -> dict:
     """Dropout 0: two sparse steps on the card against the same steps of a CPU
-    copy of the port (the plain versions), from the same weights."""
+    copy of the port (the plain versions), from the same weights; with the
+    lazy optimizer also last_step equal."""
     card = make_training_model(0.0)
     cpu = make_training_model(0.0, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     out = {"loss_diff": 0.0, "row_diff_max": 0.0, "row_diff_q9999": 0.0, "bn_diff": 0.0}
-    steps = []
+    steps, states = [], []
     for model in (card, cpu):
-        opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)
-        steps.append(make_sparse_train_step(model, loss_fn, opt, opt.init(model)))
+        opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=lazy)
+        states.append(opt.init(model))
+        steps.append(make_sparse_train_step(model, loss_fn, opt, states[-1]))
     for i, batch in enumerate(batches):
         gidx = make_grad_index(batch)
         device = next(card.parameters()).device
@@ -995,7 +1201,101 @@ def compare_with_cpu_copy(batches: list, loss_fn) -> dict:
     if (out["loss_diff"] > TRAIN_LOSS_TOL or out["row_diff_q9999"] > TRAIN_ROW_TOL
             or out["row_diff_max"] > TRAIN_ROW_CAP or out["bn_diff"] > TRAIN_ROW_TOL):
         raise AssertionError(f"card and CPU copy of the train step differ: {out}")
+    if lazy and not torch.equal(states[0]["last_step"].cpu(), states[1]["last_step"]):
+        raise AssertionError("card and CPU copy of the lazy step differ in last_step")
     return out
+
+
+def train_lazy_full_width(by_bucket: dict, epoch: list, workdir: Path) -> dict:
+    """The main training path: Trainer.train() with the lazy optimizer at full
+    width (dropout 0.1, batch 512, an epoch of the six batches of the eager
+    Trainer epoch, one evaluated batch, checkpoints into `workdir`). Counted:
+    an uninterrupted 3-epoch run, evaluation every epoch. Then a 2-epoch run
+    resumed to epoch 3 must give the same train losses (RESUME_LOSS_RTOL) and
+    equal metrics; a Recommender serves a request from the best checkpoint;
+    two lazy steps match a CPU copy of the port; six lazy and six eager steps
+    agree after materialize (LAZY_TABLE_TOL)."""
+    loss_fn = create_loss_function("dual")
+    val = [by_bucket[56][0]]
+
+    def trainer(out: str, max_epochs: int) -> Trainer:
+        # checkpoint_every = 3: the latest checkpoint at the last epoch only.
+        return Trainer(make_training_model(DROPOUT), lambda e: iter(epoch), lambda: iter(val),
+                       optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
+                       output_dir=workdir / out, max_epochs=max_epochs, eval_every=1,
+                       checkpoint_every=3, loss_fn=loss_fn, seed=7, sparse_embedding_grads=True)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    straight = trainer("straight", 3)
+    want = straight.train()
+    wall_s = time.perf_counter() - t0
+    n_steps, n_evals = 3 * len(epoch), 3
+    launches = expect_launches(
+        "lazy Trainer.train()", session_attention=2 * (n_steps + n_evals),
+        session_attention_backward=2 * n_steps, score_chunkmax=n_evals,
+        lazy_gather_catch_up=n_steps, lazy_touched_update=n_steps, lazy_materialize=n_evals)
+    if straight.opt_state["count"] != n_steps or not bool(torch.all(straight.opt_state["last_step"] == n_steps)):
+        raise AssertionError("after train() the lazy state must be materialized at the step count")
+    if not all(np.isfinite(want["train_loss"])) or len(want["val_metrics"]) != 3:
+        raise AssertionError(f"lazy train(): {want}")
+    log_entries = list(straight.checkpoint_log)
+    del straight
+    torch.cuda.empty_cache()
+
+    trainer("resumed", 2).train()
+    resumed = trainer("resumed", 3)
+    got = resumed.train(resume=True)
+    log_entries += resumed.checkpoint_log
+    loss_rel = float(np.max(np.abs(np.subtract(got["train_loss"], want["train_loss"]))
+                            / np.abs(want["train_loss"])))
+    if loss_rel > RESUME_LOSS_RTOL or got["val_metrics"] != want["val_metrics"]:
+        raise AssertionError(f"resumed run differs from the uninterrupted one: {got} vs {want}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # The checkpoint that train() wrote serves through the Recommender as it is.
+    make_edges(workdir / "graph_edges.csv", np.random.default_rng(0))
+    rec = Recommender(workdir / "straight" / "checkpoint_best", workdir / "graph_edges.csv", warmup=False)
+    items = [int(i) for i in val[0].node_ids[0, : int(val[0].num_nodes[0])]]
+    ids, scores = rec.recommend(validate_request(_Req(items, 10), NUM_ITEMS))
+    if len(ids) != 10 or set(ids) & set(items) or not all(np.isfinite(scores)):
+        raise AssertionError(f"Recommender on the lazy best checkpoint: {ids} {scores}")
+    del rec
+
+    pair = [by_bucket[16][0], by_bucket[56][0]]
+    return {
+        "steps": n_steps, "evaluations": n_evals, "launches": launches,
+        "train_loss": want["train_loss"], "val_metrics": want["val_metrics"],
+        "train_wall_s": wall_s, "resume_loss_rel_diff_max": loss_rel,
+        "checkpoints": log_entries,
+        "cpu_copy": compare_with_cpu_copy(pair, loss_fn, lazy=True),
+        "lazy_vs_eager": lazy_against_eager(pair, loss_fn),
+    }
+
+
+def lazy_against_eager(batches: list, loss_fn) -> dict:
+    """Dropout 0: six lazy and six eager sparse steps from the same weights
+    over two batches in turn (catch-up gaps form), then materialize: the
+    tables within LAZY_TABLE_TOL, the losses within 2e-4."""
+    dev = torch.device("cuda")
+    on_card = [to_device((b, make_grad_index(b)), dev) for b in batches]
+    runs = {}
+    for lazy in (False, True):
+        model = make_training_model(0.0)
+        opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=lazy)
+        state = opt.init(model)
+        step = make_sparse_train_step(model, loss_fn, opt, state)
+        losses = [step(on_card[i % 2], seed=200 + i).item() for i in range(6)]
+        opt.materialize(model, state)
+        runs[lazy] = (model.item_embedding.detach(), losses)
+    (eager, eager_losses), (lazy, lazy_losses) = runs[False], runs[True]
+    torch.testing.assert_close(lazy, eager, **LAZY_TABLE_TOL)
+    np.testing.assert_allclose(lazy_losses, eager_losses, rtol=2e-4)
+    return {"table_diff_max": (lazy - eager).abs().max().item(),
+            "loss_rel_diff_max": float(np.max(np.abs(np.subtract(lazy_losses, eager_losses))
+                                              / np.abs(eager_losses)))}
 
 
 # ---------------------------------------------------------------------------
@@ -1010,22 +1310,10 @@ def profile_training(model, loss_fn, optimizer, opt_state, by_bucket: dict, epoc
     kernels by device time. Idle share = 1 - busy / wall. Beside it the dense
     step's and the N=8 step's wall, and a warm Trainer epoch over `epoch`
     (host batches: index, pinning and copies included)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     sparse = make_sparse_train_step(model, loss_fn, optimizer, opt_state)
     dense = make_train_step(model, loss_fn, optimizer, opt_state)
     on_card = {n: to_device((by_bucket[n][0], make_grad_index(by_bucket[n][0])), dev) for n in (8, 56)}
-
-    def wall_ms(fn, n=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
 
     walls = {
         "sparse_step_wall_ms_n56": wall_ms(lambda: sparse(on_card[56], seed=1)),
@@ -1036,26 +1324,82 @@ def profile_training(model, loss_fn, optimizer, opt_state, by_bucket: dict, epoc
                    loss_fn=loss_fn, sparse_embedding_grads=True)
     warm.init_state(reset_parameters=False, opt_state=opt_state)
     walls["trainer_epoch_wall_ms_per_step"] = wall_ms(warm.train_epoch, n=2) / len(epoch)
-    steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            sparse(on_card[56], seed=i)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    busy = device_profile(lambda i: sparse(on_card[56], seed=i), walls["sparse_step_wall_ms_n56"])
     gen = torch.Generator(device="cuda").manual_seed(2)
     return {
         **walls,
         "attention_at_batch_adjacency": [attention_at_adjacency(on_card[n][0].adj, gen) for n in (56, 8)],
         "sessions_per_s_n56": TRAIN_BATCH / walls["sparse_step_wall_ms_n56"] * 1e3,
-        "device_busy_ms_per_sparse_step": busy_ms if rows else "not measured",
-        "device_idle_share": 1.0 - busy_ms / walls["sparse_step_wall_ms_n56"] if rows else "not measured",
-        "device_ops_per_sparse_step": sum(e.count for e in rows) / steps,
-        "top_device_ms_per_sparse_step": {
-            e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top
-        },
+        **{f"{k}_sparse_step": v for k, v in busy.items()},
     }
+
+
+def wall_ms(fn, n: int = 5) -> float:
+    """Host-clock ms per call of fn over n calls after one, synchronised at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def device_profile(fn, wall: float, steps: int = 5) -> dict:
+    """A torch.profiler trace of `steps` calls fn(i): the card's busy ms and
+    its ops per call, the idle share against `wall` (ms per call, measured
+    unprofiled), and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "device_busy_ms_per": busy_ms if rows else "not measured",
+        "device_idle_share": 1.0 - busy_ms / wall if rows else "not measured",
+        "device_ops_per": sum(e.count for e in rows) / steps,
+        "top_device_ms_per": {e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top},
+    }
+
+
+def profile_lazy(loss_fn, by_bucket: dict) -> dict:
+    """Lazy sparse steps at B=512, N=56 beside the eager ones above (same
+    batch, dropout 0.1), from a lazy state twelve steps in, whose rows lag a
+    few steps; then the same steps with every row at least 1,000 steps behind
+    (the count moved on: every catch-up runs all 64 terms), and one
+    materialize of the whole table from there (CUDA events)."""
+    dev = torch.device("cuda")
+    model = make_training_model(DROPOUT)
+    opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True)
+    state = opt.init(model)
+    step = make_sparse_train_step(model, loss_fn, opt, state)
+    batches = [to_device((b, make_grad_index(b)), dev) for b in [by_bucket[n][0] for n in BUCKETS] * 3]
+    for i, batch in enumerate(batches):
+        step(batch, seed=300 + i)
+    n56 = batches[BUCKETS.index(56)]
+    out = {}
+    for label in ("recent", "behind_1000"):
+        if label == "behind_1000":
+            state["count"] += 1000
+        wall = wall_ms(lambda: step(n56, seed=1))
+        out[f"lazy_step_wall_ms_n56_{label}"] = wall
+        busy = device_profile(lambda i: step(n56, seed=i), wall)
+        out.update({f"{k}_lazy_step_{label}": v for k, v in busy.items()})
+    # One materialize of the whole table, every row 1,000 or more steps behind,
+    # timed with CUDA events: the profiler's trace of this single call showed
+    # no device time.
+    state["count"] += 1000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    opt.materialize(model, state)
+    end.record()
+    torch.cuda.synchronize()
+    out["materialize_ms_behind_1000"] = start.elapsed_time(end)
+    return out
 
 
 def main() -> int:
@@ -1139,15 +1483,29 @@ def main() -> int:
     score_eval = check_scoring(gen, B=TRAIN_BATCH)
     log(f"[phase 7] score_chunkmax {json.dumps(score_eval)}")
     torch.cuda.empty_cache()
+    lazy_rows = {}
+    for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
+        for name, row in check_lazy_kernels(gen, dtype, stochastic).items():
+            lazy_rows[(name, label)] = row
+            log(f"[phase 7] {name} {json.dumps(row)}")
+        torch.cuda.empty_cache()
 
     # Phase 8
-    trained = train_full_width()
+    by_bucket, epoch = training_batches()
+    trained = train_full_width(by_bucket, epoch)
     train_profile = trained.pop("profile")
     log(f"[phase 8] {json.dumps(trained)}")
     train_launches = trained["launches"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lazy_trained = train_lazy_full_width(by_bucket, epoch, Path(tmp))
+    log(f"[phase 8] lazy {json.dumps(lazy_trained)}")
+    lazy_launches = lazy_trained["launches"]
+    torch.cuda.empty_cache()
 
     # Phase 9
     log(f"[phase 9] {json.dumps(train_profile)}")
+    log(f"[phase 9] lazy {json.dumps(profile_lazy(create_loss_function('dual'), by_bucket))}")
 
     # Phase 10: one row per kernel and path, every key in every row.
     kernels = []
@@ -1162,12 +1520,14 @@ def main() -> int:
         ("sparse_adamw", "training", adamw[("sparse_adamw", "f32")], train_launches["sparse_adamw"]),
         ("embedding_adamw", "training", adamw[("embedding_adamw", "f32")],
          train_launches["embedding_adamw"]),
+        *((name, "training_lazy", lazy_rows[(name, "f32")], lazy_launches[name])
+          for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
         # Which of a wrapper's two kernels the path ran, by the second counters.
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
-        counts = launches if path == "serving" else train_launches
+        counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches}[path]
         kernels.append({
             "name": name,
             "path": path,

@@ -76,22 +76,31 @@ def _named_params(params: dict, cfg: GraphTransformerConfig) -> dict[str, torch.
 
 
 def opt_state_from_jax(opt_state: dict, cfg) -> dict:
-    """Map the JAX ``FusedEmbeddingAdamW`` state (numpy leaves) to what the
-    port's ``FusedEmbeddingAdamW.load_state`` takes, so that both packages
-    can start from the same mid-training state.
+    """Map the JAX ``FusedEmbeddingAdamW`` state (numpy leaves) to the flat
+    dict the port's ``FusedEmbeddingAdamW.load_state`` takes (the layout of
+    its ``export_state``), so that both packages can start from the same
+    mid-training state.
 
-    ``emb_mu``, ``emb_nu`` and ``count`` keep their meaning. ``opt_state["rest"]``
-    is the ``optax.adamw`` state of every other leaf: its ``ScaleByAdamState``
-    holds ``mu`` and ``nu`` trees shaped like the params, which map to
-    ``rest_mu`` / ``rest_nu`` keyed by the port's parameter names (every
-    linear ``w`` transposed, as in ``from_jax_params``).
+    ``emb_mu``, ``emb_nu``, ``count`` and, for the lazy optimizer,
+    ``last_step`` keep their meaning. ``opt_state["rest"]`` is the
+    ``optax.adamw`` state of every other leaf: its ``ScaleByAdamState`` holds
+    ``mu`` and ``nu`` trees shaped like the params, which map to
+    ``rest.<name>.exp_avg`` / ``.exp_avg_sq`` under the port's parameter
+    names (every linear ``w`` transposed, as in ``from_jax_params``), with
+    ``rest.<name>.step`` = ``count``.
     """
     adam = next(s for s in opt_state["rest"] if hasattr(s, "mu") and hasattr(s, "nu"))
     cfg = _config(cfg)
-    return {
+    count = int(opt_state["count"])
+    out = {
         "emb_mu": _tensor(opt_state["emb_mu"]),
         "emb_nu": _tensor(opt_state["emb_nu"]),
-        "count": int(opt_state["count"]),
-        "rest_mu": _named_params(adam.mu, cfg),
-        "rest_nu": _named_params(adam.nu, cfg),
+        "count": torch.tensor(count, dtype=torch.int64),
     }
+    if "last_step" in opt_state:
+        out["last_step"] = torch.from_numpy(np.array(opt_state["last_step"], dtype=np.int32, copy=True))
+    for name, key in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        for param, value in _named_params(getattr(adam, key), cfg).items():
+            out[f"rest.{param}.{name}"] = value
+            out[f"rest.{param}.step"] = torch.tensor(float(count))
+    return out

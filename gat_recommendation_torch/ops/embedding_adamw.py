@@ -21,9 +21,9 @@ float32, so a double-precision value would differ from the JAX package's by
 about 2e-5 relative. ``count`` is a Python int; nothing is read back from
 the device.
 
-The pieces shared with the sparse update (``ops/sparse_adamw.py``) live here:
-the bias corrections, the tail, the moment store and the kernel's argument
-checks.
+The pieces shared with the sparse and the lazy updates (``ops/sparse_adamw.py``,
+``ops/lazy_adamw.py``) live here: the bias corrections, the tail, the moment
+store and the kernels' argument checks.
 """
 
 from __future__ import annotations
@@ -39,15 +39,18 @@ from gat_recommendation_torch.ops.rounding import counter_hash, mix_seed, stocha
 MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def bias_corrections(count: int, b1: float, b2: float) -> tuple[float, float]:
-    """``(1/(1-b1^count), 1/(1-b2^count))`` in float32 arithmetic."""
+def bias_denominators(count: int, b1: float, b2: float) -> tuple[float, float]:
+    """``(1-b1^count, 1-b2^count)`` in float32 arithmetic."""
     if count < 1:
         raise ValueError(f"count is the step number after the update (>= 1), got {count}")
     one, c = np.float32(1.0), np.float32(count)
-    return (
-        float(one / (one - np.float32(b1) ** c)),
-        float(one / (one - np.float32(b2) ** c)),
-    )
+    return float(one - np.float32(b1) ** c), float(one - np.float32(b2) ** c)
+
+
+def bias_corrections(count: int, b1: float, b2: float) -> tuple[float, float]:
+    """``(1/(1-b1^count), 1/(1-b2^count))`` in float32 arithmetic."""
+    one = np.float32(1.0)
+    return tuple(float(one / np.float32(d)) for d in bias_denominators(count, b1, b2))
 
 
 def moment_seed(count: int, buffer: int) -> int:
@@ -64,18 +67,27 @@ def stochastic_flags(mu: torch.Tensor, nu: torch.Tensor, stochastic_rounding: bo
     return sr_mu, sr_nu
 
 
+def round_moment(
+    value: torch.Tensor, dtype: torch.dtype, stochastic: bool, seed: int, rows: torch.Tensor
+) -> torch.Tensor:
+    """Float32 `value` [n, D] in the moment dtype (float32 or bfloat16). With
+    stochastic rounding the random bits of element (i, col) come from the
+    counter ``rows[i] * D + col``, `rows` being the global table rows of
+    `value`."""
+    if not stochastic:
+        return value.to(dtype)
+    idx = rows.long()[:, None] * value.shape[1] + torch.arange(value.shape[1], device=value.device)
+    return stochastic_round_bf16(value, counter_hash(seed, idx))
+
+
 def store_moment(
     dest: torch.Tensor, value: torch.Tensor, stochastic: bool, seed: int, row_offset: int
 ) -> None:
     """Write float32 `value` into the moment buffer `dest` (float32 or bfloat16).
     The random bits of element (row, col) come from the counter
     ``(row_offset + row) * D + col``."""
-    if stochastic:
-        rows, dim = value.shape
-        idx = (torch.arange(rows, device=value.device) + row_offset)[:, None] * dim
-        idx = idx + torch.arange(dim, device=value.device)
-        value = stochastic_round_bf16(value, counter_hash(seed, idx))
-    dest.copy_(value)
+    rows = torch.arange(value.shape[0], device=value.device) + row_offset
+    dest.copy_(round_moment(value, dest.dtype, stochastic, seed, rows))
 
 
 def adamw_tail(w, mu, nu, ibc1: float, ibc2: float, lr: float, eps: float, weight_decay: float):

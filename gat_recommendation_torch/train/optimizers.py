@@ -8,12 +8,20 @@ the pre-reduced row gradients of the sparse train step or
 through ``torch.optim.AdamW`` with the same learning rate, betas, eps and
 decoupled weight decay. The math is AdamW over the whole model.
 
+With ``lazy=True`` (the JAX package's main training path) a sparse step
+touches only the rows it gathered: ``gather_catch_up`` applies each row's
+skipped decay and momentum tail in closed form, ``update_sparse_lazy`` steps
+and scatters those rows, and ``materialize`` catches every row up before the
+table is read outside training (``ops/lazy_adamw.py``, three row kernels).
+
 The model's parameters and the moments are updated IN PLACE. The state is a
 plain dict: ``emb_mu``, ``emb_nu`` (the table's moments), ``count`` (a Python
-int: nothing is read back from the device per step) and ``rest`` (the
-``torch.optim.AdamW`` of the other parameters). On CUDA tensors the table
+int: nothing is read back from the device per step), ``rest`` (the
+``torch.optim.AdamW`` of the other parameters) and, when lazy, ``last_step``
+(int32 [V], the step of each row's last update). On CUDA tensors the table
 update launches the kernel, on CPU tensors it runs the plain version; there
-is no switch.
+is no switch. ``export_state`` and ``load_state`` carry the state as a flat
+dict of tensors (the checkpoint's optimizer file).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gat_recommendation_torch.ops import lazy_adamw
 from gat_recommendation_torch.ops.embedding_adamw import embedding_adamw
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw
 
@@ -45,6 +54,7 @@ class FusedEmbeddingAdamW:
         moment_dtype=None,
         stochastic_rounding: bool | None = None,
         lazy: bool = False,
+        lazy_tail_terms: int = lazy_adamw.TAIL_TERMS,
     ):
         """moment_dtype: storage dtype of the table's mu/nu buffers. None
         keeps float32 (exact AdamW). ``torch.bfloat16`` halves the moments'
@@ -57,13 +67,14 @@ class FusedEmbeddingAdamW:
         running value, below a bfloat16 ulp); unbiased stochastic rounding
         does not. Pass False only to reproduce the stall.
 
-        lazy: the lazy catch-up update of only the touched rows is not
-        ported yet.
+        lazy: update only the TOUCHED rows of the table each step and apply
+        an untouched row's decay and momentum tail at its next touch,
+        O(U·D) a step instead of the eager [V, D] sweep. Equal to dense AdamW
+        within the momentum-tail truncation at `lazy_tail_terms` terms (about
+        1e-5 of weight). ``materialize`` must run before the table is read
+        outside training; the Trainer runs it before every evaluation and
+        save. Sparse steps only: a dense step (``update_full``) raises.
         """
-        if lazy:
-            raise NotImplementedError(
-                "lazy catch-up AdamW is not ported yet (ROADMAP.md, queue A item 2b); use lazy=False"
-            )
         self.lr = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -76,6 +87,8 @@ class FusedEmbeddingAdamW:
                 d is not None and d != torch.float32 for d in (self.mu_dtype, self.nu_dtype)
             )
         self.stochastic_rounding = stochastic_rounding
+        self.lazy = lazy
+        self.lazy_tail_terms = lazy_tail_terms
 
     @property
     def _hparams(self) -> dict:
@@ -86,7 +99,7 @@ class FusedEmbeddingAdamW:
         """Fresh state for `model`: zero moments on the table's device."""
         table = model.get_parameter(EMBEDDING_KEY)
         rest = list(rest_parameters(model).values())
-        return {
+        state = {
             "emb_mu": torch.zeros_like(table, dtype=self.mu_dtype or table.dtype),
             "emb_nu": torch.zeros_like(table, dtype=self.nu_dtype or table.dtype),
             "count": 0,
@@ -95,6 +108,10 @@ class FusedEmbeddingAdamW:
                 weight_decay=self.weight_decay,
             ),
         }
+        if self.lazy:
+            # Rows start "touched at step 0": zero moments, nothing pending.
+            state["last_step"] = torch.zeros(table.shape[0], dtype=torch.int32, device=table.device)
+        return state
 
     def _step_rest(self, g_rest: dict, state: dict, model: nn.Module) -> None:
         for name, p in rest_parameters(model).items():
@@ -114,6 +131,8 @@ class FusedEmbeddingAdamW:
     def update_full(self, grads: dict, state: dict, model: nn.Module) -> dict:
         """Apply one step from dense gradients (`grads`: parameter name ->
         gradient, the table's under ``item_embedding``). Returns `state`."""
+        if self.lazy:
+            raise ValueError("the lazy optimizer takes sparse steps only (update_sparse_lazy)")
         state["count"] += 1
         embedding_adamw(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
@@ -130,6 +149,8 @@ class FusedEmbeddingAdamW:
         """Apply one step with the table gradient pre-reduced as (uid, summed):
         ascending unique row ids with a sentinel tail, and their summed
         gradient rows, instead of a dense [V, D] gradient. Returns `state`."""
+        if self.lazy:
+            raise ValueError("the lazy optimizer steps through gather_catch_up and update_sparse_lazy")
         state["count"] += 1
         sparse_adamw(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
@@ -139,19 +160,89 @@ class FusedEmbeddingAdamW:
         self._step_rest(g_rest, state, model)
         return state
 
+    # ---- lazy mode (O(touched rows) a step, ops/lazy_adamw.py) ----
+
+    @torch.no_grad()
+    def gather_catch_up(self, model: nn.Module, state: dict, uid: torch.Tensor):
+        """The touched rows with their pending updates applied: float32
+        (w_c, mu_c, nu_c) [U, D], what dense AdamW would hold BEFORE this
+        step's gradient (step ``count``), so the forward sees the dense
+        trajectory's weights. Sentinel slots hold zeros and are never read."""
+        return lazy_adamw.gather_catch_up(
+            model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
+            state["last_step"], uid, state["count"] + 1, tail_terms=self.lazy_tail_terms,
+            **self._hparams,
+        )
+
+    @torch.no_grad()
+    def update_sparse_lazy(
+        self, g_rest: dict, uid: torch.Tensor, summed: torch.Tensor, w_c, mu_c, nu_c,
+        state: dict, model: nn.Module,
+    ) -> dict:
+        """One step for the touched rows only: (w_c, mu_c, nu_c) from
+        ``gather_catch_up`` on the SAME uid, `summed` the per-slot gradient
+        (sentinel slots zero). Writes the uid rows of table, moments and
+        ``last_step`` (= the new count); steps the other parameters through
+        ``torch.optim.AdamW``. Returns `state`."""
+        state["count"] += 1
+        lazy_adamw.touched_update_scatter(
+            model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
+            state["last_step"], uid, w_c, mu_c, nu_c, summed, state["count"],
+            stochastic_rounding=self._stochastic(state), **self._hparams,
+        )
+        self._step_rest(g_rest, state, model)
+        return state
+
+    @torch.no_grad()
+    def materialize(self, model: nn.Module, state: dict) -> dict:
+        """Catch EVERY row up to the current step (one pass over the table,
+        in place), so the table equals the dense-AdamW trajectory. Must run
+        before the table is read outside training. Idempotent; a no-op when
+        not lazy. Returns `state`."""
+        if self.lazy:
+            lazy_adamw.materialize(
+                model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
+                state["last_step"], state["count"], tail_terms=self.lazy_tail_terms,
+                stochastic_rounding=self._stochastic(state), **self._hparams,
+            )
+        return state
+
+    # ---- state in and out ----
+
+    def export_state(self, state: dict, model: nn.Module) -> dict[str, torch.Tensor]:
+        """The state as a flat dict of tensors (no copies): ``emb_mu``,
+        ``emb_nu``, ``count`` (int64 scalar), ``last_step`` when lazy, and for
+        every other parameter ``rest.<name>.step`` / ``.exp_avg`` /
+        ``.exp_avg_sq`` (zeros before the first step). ``load_state`` takes it."""
+        out = {
+            "emb_mu": state["emb_mu"],
+            "emb_nu": state["emb_nu"],
+            "count": torch.tensor(state["count"], dtype=torch.int64),
+        }
+        if "last_step" in state:
+            out["last_step"] = state["last_step"]
+        for name, p in rest_parameters(model).items():
+            s = state["rest"].state.get(p)
+            out[f"rest.{name}.step"] = torch.tensor(float(s["step"]) if s else 0.0)
+            out[f"rest.{name}.exp_avg"] = s["exp_avg"] if s else torch.zeros_like(p)
+            out[f"rest.{name}.exp_avg_sq"] = s["exp_avg_sq"] if s else torch.zeros_like(p)
+        return out
+
     def load_state(self, state: dict, model: nn.Module, saved: dict) -> dict:
-        """Fill `state` (from ``init``) with saved values: ``emb_mu``,
-        ``emb_nu``, ``count``, and ``rest_mu`` / ``rest_nu`` (parameter name ->
-        tensor), e.g. from ``convert.opt_state_from_jax``. Returns `state`."""
+        """Fill `state` (from ``init``) with the flat dict of ``export_state``
+        (from a checkpoint, or ``convert.opt_state_from_jax``); a lazy state
+        needs ``last_step``. Returns `state`."""
+        state["count"] = int(saved["count"])
         with torch.no_grad():
             state["emb_mu"].copy_(saved["emb_mu"])
             state["emb_nu"].copy_(saved["emb_nu"])
-        state["count"] = int(saved["count"])
+            if self.lazy:
+                state["last_step"].copy_(saved["last_step"])
         rest = state["rest"]
         for name, p in rest_parameters(model).items():
             rest.state[p] = {
-                "step": torch.tensor(float(state["count"])),
-                "exp_avg": saved["rest_mu"][name].to(p.device, p.dtype).clone(),
-                "exp_avg_sq": saved["rest_nu"][name].to(p.device, p.dtype).clone(),
+                "step": torch.tensor(float(saved[f"rest.{name}.step"])),
+                "exp_avg": saved[f"rest.{name}.exp_avg"].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": saved[f"rest.{name}.exp_avg_sq"].to(p.device, p.dtype).clone(),
             }
         return state

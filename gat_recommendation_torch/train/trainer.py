@@ -1,4 +1,5 @@
-"""Train and eval steps, and the Trainer's epoch and evaluation loops.
+"""Train and eval steps, and the Trainer: epochs, evaluation, checkpoints,
+early stop and resume.
 
 The steps update the model and the optimizer state IN PLACE (the JAX package
 threads ``params, state, opt_state`` through pure functions): a step is
@@ -10,13 +11,27 @@ Per-step randomness is explicit: the Trainer derives a 64-bit step seed on
 the host from ``(seed, epoch, step)`` and the model splits it per layer into
 the attention-dropout seed and the seed of the node-dropout generator.
 
-Not ported yet (ROADMAP.md, queue A): chained steps (``chain > 1``), the lazy
-optimizer, ``Trainer.train()`` with its best/latest checkpoints, early stop
-and resume.
+``Trainer.train()`` runs the JAX package's training policy: evaluation every
+``eval_every`` epochs on recall/NDCG at ``k_values``, early stop on
+recall@``k_values[0]`` after ``patience`` evaluations without a gain, the best
+state kept on the device and written once at the end (``defer_best``),
+``checkpoint_latest`` every ``checkpoint_every`` evaluations plus a backstop
+save of the last epoch, ``history.json``, and resume from
+``checkpoint_latest``. The lazy optimizer is materialized before every
+evaluation (which the save after it shares) and before the backstop save, so
+checkpoints hold the dense-trajectory table. Checkpoints are
+``train/checkpoint.py``'s format with the optimizer file.
+
+Not ported yet (ROADMAP.md, queue A): chained steps (``chain > 1``) and the
+C++ batch assembly engine.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import time
+from pathlib import Path
 from typing import Callable, Iterable
 
 import numpy as np
@@ -31,6 +46,8 @@ from gat_recommendation_torch.data.batching import (
 from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.ops.rounding import mix_seed
 from gat_recommendation_torch.ops.scoring import full_catalog_topk
+from gat_recommendation_torch.train import checkpoint
+from gat_recommendation_torch.train.hits_io import load_hits, save_hits
 from gat_recommendation_torch.train.losses import bpr_loss
 from gat_recommendation_torch.train.metrics import compute_ndcg_at_k, compute_recall_at_k
 from gat_recommendation_torch.train.optimizers import (
@@ -38,6 +55,8 @@ from gat_recommendation_torch.train.optimizers import (
     FusedEmbeddingAdamW,
     rest_parameters,
 )
+
+logger = logging.getLogger(__name__)
 
 
 def sorted_segment_sum(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -83,6 +102,11 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
     sorted segment sum; the row of id 0 is zeroed (the padding item never
     updates); ``optimizer.update_sparse`` does the rest.
 
+    With a lazy optimizer the rows come from ``optimizer.gather_catch_up``:
+    each unique row once, caught up to the dense trajectory, then spread to
+    the R slots through the inverse of the host-sorted permutation; the
+    summed gradient goes to ``optimizer.update_sparse_lazy``.
+
     `batch` is a ``SessionBatch`` (the index is built on the fly from a copy
     on the host: convenient for tests) or a ``(SessionBatch, GradIndex)``
     pair already on the model's device (the Trainer's path). The loss needs
@@ -90,6 +114,7 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
     """
     if not hasattr(optimizer, "update_sparse"):
         raise TypeError("optimizer must support update_sparse")
+    lazy = getattr(optimizer, "lazy", False)
 
     def train_step(batch, seed: int = 0) -> torch.Tensor:
         model.train()
@@ -99,8 +124,13 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
             gidx = to_device(make_grad_index(batch.to("cpu")), batch.node_ids.device)
         B, N = batch.node_ids.shape
         K = batch.negatives.shape[1]
-        table = model.get_parameter(EMBEDDING_KEY)
-        rows = table.detach()[gidx.ids].requires_grad_(True)
+        if lazy:
+            w_c, mu_c, nu_c = optimizer.gather_catch_up(model, opt_state, gidx.uid)
+            u_of_r = torch.empty_like(gidx.perm)  # perm is a permutation: every slot is set once
+            u_of_r[gidx.perm] = gidx.seg
+            rows = w_c[u_of_r].requires_grad_(True)
+        else:
+            rows = model.get_parameter(EMBEDDING_KEY).detach()[gidx.ids].requires_grad_(True)
         node_emb = rows[: B * N].view(B, N, -1)
         target_emb = rows[B * N : B * N + B]
         neg_emb = rows[B * N + B :].view(B, K, -1)
@@ -111,7 +141,11 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
         *g_other, g_rows = torch.autograd.grad(loss, [*other.values(), rows], allow_unused=True)
         summed = sorted_segment_sum(g_rows[gidx.perm], gidx.lengths)
         summed = summed * (gidx.uid != 0)[:, None]
-        optimizer.update_sparse(dict(zip(other, g_other)), gidx.uid, summed, opt_state, model)
+        g_rest = dict(zip(other, g_other))
+        if lazy:
+            optimizer.update_sparse_lazy(g_rest, gidx.uid, summed, w_c, mu_c, nu_c, opt_state, model)
+        else:
+            optimizer.update_sparse(g_rest, gidx.uid, summed, opt_state, model)
         return loss.detach()
 
     return train_step
@@ -134,14 +168,27 @@ def make_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Calla
     return eval_step
 
 
+def _device_copy(tensors: dict) -> dict:
+    """A copy of every tensor of a flat dict on its own device (a snapshot
+    that the next steps, which update in place, do not touch)."""
+    return {k: v.detach().clone() for k, v in tensors.items()}
+
+
 class Trainer:
-    """Epoch loop over bucketed SessionBatch streams.
+    """Epoch-loop trainer over bucketed SessionBatch streams.
 
     `train_batches(epoch)` and `val_batches()` return iterators of host
     batches (``data.batching.iterate_batches``). The model must already be on
     `device` (``cuda`` when None, which raises without a CUDA device).
     Without an `optimizer`, ``FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)``.
     ``sparse_embedding_grads`` chooses the sparse step over the dense one.
+    ``train()`` writes into `output_dir` (created at the first save):
+    ``checkpoint_best``, ``checkpoint_latest``, ``history.json`` and, with
+    ``record_hits``, ``hits_k{k}.npz``. ``checkpoint_every`` counts
+    evaluations: the latest checkpoint is written at every such evaluation,
+    at an early stop and at the last epoch. ``defer_best`` keeps the best
+    state as a device copy and writes ``checkpoint_best`` once at the end
+    (False: at every improvement).
     """
 
     def __init__(
@@ -150,11 +197,18 @@ class Trainer:
         train_batches: Callable[[int], Iterable],
         val_batches: Callable[[], Iterable],
         optimizer=None,
+        output_dir: str | Path = "outputs",
+        max_epochs: int = 100,
+        patience: int = 10,
+        eval_every: int = 1,
+        checkpoint_every: int = 1,
         k_values: list[int] | None = None,
         loss_fn=None,
         seed: int = 42,
         sparse_embedding_grads: bool = False,
         chain: int = 1,
+        defer_best: bool = True,
+        record_hits: bool = False,
         device=None,
     ):
         if chain != 1:
@@ -170,15 +224,31 @@ class Trainer:
         self.val_batches = val_batches
         self.sparse_embedding_grads = sparse_embedding_grads
         self.optimizer = optimizer or FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)
+        self.output_dir = Path(output_dir)
+        self.max_epochs = max_epochs
+        self.patience = patience
+        self.eval_every = eval_every
+        self.checkpoint_every = checkpoint_every
         self.k_values = k_values if k_values is not None else [10, 20]
         self.loss_fn = loss_fn or bpr_loss
         self.seed = seed
         self.chain = 1
+        self.defer_best = defer_best
+        self.record_hits = record_hits
         self.current_epoch = 0
+        self.best_val_metric = 0.0
+        self.patience_counter = 0
+        self.history: dict = {"train_loss": [], "val_metrics": []}
+        # Row i of `hits` aligns with history["val_metrics"][i] (None: unknown).
+        self.hits: list = []
+        # One entry per checkpoint written or read: op, which, epoch, seconds, bytes.
+        self.checkpoint_log: list[dict] = []
+        self._n_evals = 0
+        self._latest_saved_epoch: int | None = None
+        self._best_snapshot: tuple | None = None
         self.opt_state: dict | None = None
         self._train_step: Callable | None = None
         self._eval_step = make_eval_step(self.model, max(self.k_values))
-
     def init_state(self, reset_parameters: bool = True, opt_state: dict | None = None) -> dict:
         """Fresh optimizer state (or `opt_state`, to go on from it), and, unless
         `reset_parameters` is False (e.g. after loading weights), parameters
@@ -215,8 +285,11 @@ class Trainer:
         return float(torch.stack(losses).mean())  # the epoch's one readback
 
     def evaluate(self) -> dict:
-        """recall@k and ndcg@k over ``val_batches()``. Per-batch top-k stays
-        on the device; one concatenated readback at the end."""
+        """recall@k and ndcg@k over ``val_batches()``, after the lazy
+        optimizer's pending row updates are flushed (so the table read is the
+        dense trajectory's, as is what a save after it writes). Per-batch
+        top-k stays on the device; one concatenated readback at the end."""
+        self._materialize()
         device_tops, masks, targets = [], [], []
         for batch in self.val_batches():
             device_tops.append(self._eval_step(to_device(batch, self.device)))
@@ -234,5 +307,143 @@ class Trainer:
         for k in self.k_values:
             metrics[f"recall@{k}"] = compute_recall_at_k(predictions, targets_arr, k)
             metrics[f"ndcg@{k}"] = compute_ndcg_at_k(predictions, targets_arr, k)
+        if self.record_hits:
+            # Per-session hit vector at k_values[0], in the (fixed) val order.
+            k0 = self.k_values[0]
+            self.hits.append((predictions[:, :k0] == targets_arr[:, None]).any(axis=1).astype(np.int8))
         return metrics
+
+    def _materialize(self) -> None:
+        """Flush the lazy optimizer's pending row updates (a no-op otherwise)."""
+        if self.opt_state is not None:
+            self.optimizer.materialize(self.model, self.opt_state)
+
+    # -- checkpoints --------------------------------------------------------
+
+    @property
+    def _hits_path(self) -> Path:
+        return self.output_dir / f"hits_k{self.k_values[0]}.npz"
+
+    def _save_hits(self) -> None:
+        """The hit vectors, padded at the front to the evaluations in the
+        history, so that row i always aligns with history["val_metrics"][i]."""
+        n = len(self.history["val_metrics"])
+        save_hits(self._hits_path, [None] * (n - len(self.hits)) + list(self.hits))
+
+    def _log_checkpoint(self, op: str, which: str, epoch: int, seconds: float) -> None:
+        path = self.output_dir / f"checkpoint_{which}"
+        size = sum(f.stat().st_size for f in path.iterdir())
+        self.checkpoint_log.append({"op": op, "which": which, "epoch": epoch, "seconds": seconds, "bytes": size})
+        logger.info("%s checkpoint_%s: %d bytes in %.2f s", op, which, size, seconds)
+
+    def _write_checkpoint(self, which: str, model_state=None, optimizer_state=None) -> None:
+        """Write checkpoint_<which> from the live state or from a snapshot."""
+        t0 = time.perf_counter()
+        checkpoint.save(
+            self.output_dir / f"checkpoint_{which}", self.model, epoch=self.current_epoch,
+            best_val_metric=self.best_val_metric, history=self.history,
+            model_state=model_state,
+            optimizer_state=optimizer_state or self.optimizer.export_state(self.opt_state, self.model),
+        )
+        self._log_checkpoint("save", which, self.current_epoch, time.perf_counter() - t0)
+        if which == "latest" and self.record_hits and self.hits:
+            self._save_hits()  # the sidecar keeps a resume in step
+
+    def save_checkpoint(self, which: str = "latest") -> None:
+        """Materialize the lazy optimizer, then write checkpoint_<which>
+        ("latest" or "best") from the live state."""
+        self._materialize()
+        self._write_checkpoint(which)
+
+    def load_checkpoint(self, which: str = "latest") -> dict:
+        """Resume from checkpoint_<which>: a fresh optimizer state over the
+        model, both filled from the checkpoint; the epoch counter goes on
+        after the saved epoch, the best metric and the history come back.
+        Returns the optimizer state."""
+        self.init_state(reset_parameters=False)
+        t0 = time.perf_counter()
+        meta = checkpoint.restore(
+            self.output_dir / f"checkpoint_{which}", self.model, self.optimizer, self.opt_state
+        )
+        self._log_checkpoint("restore", which, meta["epoch"], time.perf_counter() - t0)
+        self.current_epoch = meta["epoch"] + 1
+        self.best_val_metric = meta["best_val_metric"]
+        self.history = meta["history"]
+        if self.record_hits:
+            n = len(self.history["val_metrics"])
+            saved = load_hits(self._hits_path) if self._hits_path.exists() else []
+            # The sidecar may trail the history if the last save predates evaluations.
+            self.hits = (saved + [None] * n)[:n]
+        return self.opt_state
+
+    # -- the training loop --------------------------------------------------
+
+    def train(self, resume: bool = False) -> dict:
+        """Train from `current_epoch` to `max_epochs` (or an early stop) and
+        return the history. With `resume`, first load checkpoint_latest;
+        without a state from ``init_state``, start from fresh parameters drawn
+        from the Trainer's seed."""
+        if resume:
+            self.load_checkpoint("latest")
+        elif self.opt_state is None:
+            self.init_state()
+        logger.info("Training %s for up to %d epochs", self.model.name, self.max_epochs)
+        trained = False
+        for epoch in range(self.current_epoch, self.max_epochs):
+            self.current_epoch = epoch
+            trained = True
+            t0 = time.perf_counter()
+            train_loss = self.train_epoch()
+            self.history["train_loss"].append(train_loss)
+            logger.info("Epoch %d: train_loss=%.4f (%.1f s)", epoch, train_loss, time.perf_counter() - t0)
+            if (epoch + 1) % self.eval_every:
+                continue
+            # evaluate() materializes the lazy optimizer: the best snapshot
+            # and the saves after it read the dense-trajectory table too.
+            val_metrics = self.evaluate()
+            self.history["val_metrics"].append(val_metrics)
+            logger.info("Epoch %d: %s", epoch, ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()))
+            val_metric = val_metrics[f"recall@{self.k_values[0]}"]
+            is_best = val_metric > self.best_val_metric
+            if is_best:
+                self.best_val_metric = val_metric
+                self.patience_counter = 0
+            else:
+                self.patience_counter += 1
+            stopping = self.patience_counter >= self.patience
+            self._n_evals += 1
+            save_latest = (stopping or epoch == self.max_epochs - 1
+                           or self._n_evals % self.checkpoint_every == 0)
+            if is_best and self.defer_best:
+                self._best_snapshot = (
+                    _device_copy(self.model.state_dict()),
+                    _device_copy(self.optimizer.export_state(self.opt_state, self.model)),
+                    epoch,
+                )
+            if save_latest:
+                self._write_checkpoint("latest")
+                self._latest_saved_epoch = epoch
+            if is_best and not self.defer_best:
+                self._write_checkpoint("best")
+            if stopping:
+                logger.info("Early stopping at epoch %d", epoch)
+                break
+
+        # Backstop: checkpoint_latest holds the last trained epoch whatever
+        # eval_every, checkpoint_every and max_epochs make of the cadence.
+        if trained and self._latest_saved_epoch != self.current_epoch:
+            self.save_checkpoint("latest")
+            self._latest_saved_epoch = self.current_epoch
+        if self._best_snapshot is not None:
+            model_state, optimizer_state, best_epoch = self._best_snapshot
+            epoch_now, self.current_epoch = self.current_epoch, best_epoch  # meta["epoch"]: the best epoch
+            self._write_checkpoint("best", model_state, optimizer_state)
+            self.current_epoch = epoch_now
+            self._best_snapshot = None
+
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        (self.output_dir / "history.json").write_text(json.dumps(self.history, indent=2))
+        if self.record_hits and self.hits:
+            self._save_hits()
+        return self.history
 

@@ -4,12 +4,14 @@
     python3 scripts/gpu/kernel_variants.py score '{"two_blocks": [["__launch_bounds__(kTileThreads, 1)", "__launch_bounds__(kTileThreads, 2)"]]}'
     python3 scripts/gpu/kernel_variants.py attn  scripts/gpu/variants/attn.json
     python3 scripts/gpu/kernel_variants.py bwd   scripts/gpu/variants/bwd.json
+    python3 scripts/gpu/kernel_variants.py lazy  scripts/gpu/variants/lazy.json
 
 The variants are one JSON object, given as text or as the path of a file
 (scripts/gpu/variants/ holds the sets whose times PERF.md quotes). A variant
 is a name and a list of [old, new] text substitutions applied to
-gat_recommendation_torch/csrc/score_chunkmax.cu ("score") or
-session_attention.cu ("attn": the forward kernels, "bwd": the backward); a
+gat_recommendation_torch/csrc/score_chunkmax.cu ("score"),
+session_attention.cu ("attn": the forward kernels, "bwd": the backward) or
+lazy_adamw.cu ("lazy": materialize and the gather); a
 first pair ["FILE", path] takes a whole other source instead. The variant "shipped" (no substitution) is always
 added. Every variant is compiled with the port's nvcc flags into
 build/kernel_variants/ (all at once), loaded with ctypes and called through
@@ -18,7 +20,10 @@ the shapes the training path uses: scoring at B = 512 (and 8, 64, 128) over
 the full 467,456 x 256 table, the attention forward at B = 512, N in {56, 32,
 16, 8}, 2 heads of 128, dropout 0.1 (the row kernel also at B = 1, the serving
 shape), the attention backward at the same B = 512 shapes (adjacency density
-0.3, and 0.0025 at N = 56). Printed per variant: ptxas registers and
+0.3, and 0.0025 at N = 56), the lazy kernels over the full table with
+chip_smoke.py's phase 7 inputs (float32 moments, rows 0 .. 65 and several
+hundred steps behind; materialize from single calls on a restored state,
+through the port's own wrapper). Printed per variant: ptxas registers and
 spills of the batch kernel, whether the result is within the smoke test's
 tolerance of the plain PyTorch version, its largest error, and device ms per
 call (CUDA graph of calls, median of replays, as chip_smoke.py times). A
@@ -41,8 +46,12 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import ATTN_GRAD_TOL, ATTN_TOL, DIM, HEADS, NUM_ITEMS, ROWS, SCORE_TOL, device_ms, nvidia_smi  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ADAMW, ATTN_GRAD_TOL, ATTN_TOL, DIM, HEADS, LAZY_COUNT, NUM_ITEMS, ROWS, SCORE_TOL, TABLE_TOL, _lazy_inputs,
+    device_ms, nvidia_smi, reset_ms,
+)
 from gat_recommendation_torch.ops import _build  # noqa: E402
+from gat_recommendation_torch.ops import lazy_adamw  # noqa: E402
 from gat_recommendation_torch.ops.score_chunkmax import score_chunkmax_reference  # noqa: E402
 from gat_recommendation_torch.ops.session_attention import (  # noqa: E402
     keep_threshold,
@@ -54,6 +63,7 @@ SOURCES = {
     "score": ("score_chunkmax", "tile_kernel"),
     "attn": ("session_attention", "staged_kernelILb1ELi4"),
     "bwd": ("session_attention", "backward_kernelILi4"),
+    "lazy": ("lazy_adamw", "materialize_kernelIffE"),
 }
 
 
@@ -204,6 +214,50 @@ def time_backward(libs: dict, gen: torch.Generator) -> None:
             }), flush=True)
 
 
+def time_lazy(libs: dict, gen: torch.Generator) -> None:
+    """Each variant's library is put where the port's wrappers load theirs,
+    so the wrappers' own argument marshalling drives it. Materialize runs on
+    two states: phase 7's, and one like a table early in training (95 % of
+    the rows never touched, their moments 0; every row 1,000 steps behind,
+    so every catch-up runs all 64 terms)."""
+    state, uid, _, _ = _lazy_inputs(gen, torch.float32)
+    idle = [t.clone() for t in state]
+    untouched = torch.rand(ROWS, device=state[0].device, generator=gen) < 0.95
+    idle[1][untouched] = 0.0
+    idle[2][untouched] = 0.0
+    idle[3].zero_()
+    wants = {}
+    for label, start in (("", state), ("_idle", idle)):
+        wants[label] = [t.clone() for t in start]
+        lazy_adamw.materialize_reference(*wants[label], LAZY_COUNT, **ADAMW)
+    want_rows = lazy_adamw.gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW)
+    work = [t.clone() for t in state]
+
+    def restore(start):
+        for dst, src in zip(work, start):
+            dst.copy_(src)
+
+    for name, lib in libs.items():
+        _build._libs["lazy_adamw"] = lib
+        row = {"variant": name}
+        for label, start in (("", state), ("_idle", idle)):
+            restore(start)
+            lazy_adamw.materialize(*work, LAZY_COUNT, **ADAMW)
+            torch.cuda.synchronize()
+            want = wants[label]
+            row[f"within_tolerance{label}"] = bool(torch.allclose(work[0], want[0], **TABLE_TOL))
+            row[f"moments_equal{label}"] = all(torch.equal(a, b) for a, b in zip(work[1:], want[1:]))
+            row[f"max_abs_err{label}"] = (work[0] - want[0]).abs().max().item()
+            row[f"materialize_ms{label}"] = reset_ms(
+                lambda: lazy_adamw.materialize(*work, LAZY_COUNT, **ADAMW), lambda: restore(start), 10)
+        rows = lazy_adamw.gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW)
+        torch.cuda.synchronize()
+        row["gather_within_tolerance"] = bool(torch.allclose(rows[0], want_rows[0], **TABLE_TOL))
+        row["gather_ms"] = device_ms(lambda: lazy_adamw.gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW), 10, 5)
+        print(json.dumps(row), flush=True)
+    _build._libs.pop("lazy_adamw")
+
+
 def main() -> int:
     if len(sys.argv) not in (2, 3) or sys.argv[1] not in SOURCES:
         print(__doc__, file=sys.stderr)
@@ -218,7 +272,7 @@ def main() -> int:
     source, kernel_tag = SOURCES[sys.argv[1]]
     libs = build_variants(source, kernel_tag, variants)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    {"score": time_scoring, "attn": time_attention, "bwd": time_backward}[sys.argv[1]](libs, gen)
+    {"score": time_scoring, "attn": time_attention, "bwd": time_backward, "lazy": time_lazy}[sys.argv[1]](libs, gen)
     return 0
 
 

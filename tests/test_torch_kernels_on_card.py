@@ -15,7 +15,10 @@ version draw the same keep bits from the same seed, so the same tolerances
 hold. AdamW: table rtol 1e-6 / atol 1e-7; the moments, bf16 with stochastic
 rounding included, must be EQUAL bit for bit (the kernel does the plain
 version's float32 operations in the same order, without FMA contraction, and
-draws the same rounding bits).
+draws the same rounding bits). The lazy AdamW row kernels are held to their
+plain versions the same way: weights TABLE_TOL, float32 moments and
+last_step equal (expf and IEEE division on both sides), bf16 moments with
+stochastic rounding equal bit for bit, rows outside uid untouched.
 
 Each wrapper holds two kernels and chooses by shape: scoring by B (one warp
 per chunk below ``TILE_MIN_BATCH`` sessions, the tiled product from there up),
@@ -34,6 +37,7 @@ import pytest
 import torch
 
 from gat_recommendation_torch.ops import embedding_adamw as ea
+from gat_recommendation_torch.ops import lazy_adamw as la
 from gat_recommendation_torch.ops import score_chunkmax as sc
 from gat_recommendation_torch.ops import scoring
 from gat_recommendation_torch.ops import session_attention as sa
@@ -475,3 +479,108 @@ def test_adamw_wrappers_reject_what_the_kernel_does_not_take(cuda):
         sp.sparse_adamw(table, mu, nu, uid, summed, 1, stochastic_rounding=True, **HYPER)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ea.embedding_adamw(table, mu.half(), nu, summed, 1, **HYPER)
+
+
+def _lazy_inputs(dev, rows, D, U, n_real, count, mu_dtype, nu_dtype, seed=6):
+    """Rows last written 0, 1, .., 63, 64 and several hundred steps before
+    `count - 1`, some with zero moments, row 0 among the uid rows, a sentinel
+    tail."""
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy((0.05 * rng.standard_normal((rows, D))).astype(np.float32)).to(dev)
+    mu = torch.from_numpy((0.01 * rng.standard_normal((rows, D))).astype(np.float32)).to(dev)
+    nu = torch.from_numpy(rng.gamma(2.0, 5e-5, (rows, D)).astype(np.float32)).to(dev)
+    table[0] = mu[0] = nu[0] = 0.0
+    mu[1::5] = 0.0  # never touched: the kernels skip their series
+    nu[1::5] = 0.0
+    mu[2::7] = -0.0
+    gaps = np.concatenate([np.arange(0, 66), [200, 300, 700]])
+    last = np.clip(count - 1 - gaps[rng.integers(0, len(gaps), rows)], 0, None).astype(np.int32)
+    ids = np.sort(np.concatenate([[0], rng.choice(np.arange(1, rows), n_real - 1, replace=False)]))
+    uid = np.full(U, 2**31 - 1, np.int32)
+    uid[:n_real] = ids
+    summed = rng.standard_normal((U, D)).astype(np.float32) * 0.1
+    summed[0] = 0.0
+    summed[n_real:] = 0.0
+    return (table, mu.to(mu_dtype), nu.to(nu_dtype), torch.from_numpy(last).to(dev),
+            torch.from_numpy(uid).to(dev), torch.from_numpy(summed).to(dev))
+
+
+def _same_bits(a, b):
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.int32: torch.int32}[a.dtype]
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+LAZY_MOMENTS = [(torch.float32, torch.float32, False), (torch.bfloat16, torch.bfloat16, False),
+                (torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.bfloat16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,nu_dtype,sr", LAZY_MOMENTS)
+@pytest.mark.parametrize("rows,D,U,n_real,count", [(4096, 256, 1024, 700, 900), (999, 36, 64, 64, 70),
+                                                    (513, 4, 40, 3, 2)])
+def test_lazy_gather_and_touched_update_kernels_match_plain(cuda, rows, D, U, n_real, count, mu_dtype,
+                                                           nu_dtype, sr):
+    table, mu, nu, last, uid, summed = _lazy_inputs(cuda, rows, D, U, n_real, count, mu_dtype, nu_dtype)
+    gathers, touched = la.gather_catch_up.launches, la.touched_update_scatter.launches
+    got = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
+    want = la.gather_catch_up_reference(table, mu, nu, last, uid, count, **HYPER)
+    torch.cuda.synchronize()
+    assert la.gather_catch_up.launches == gathers + 1
+    torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+    assert _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+    assert all(torch.all(g[n_real:] == 0) for g in got)  # sentinel slots
+    after = [[t.clone() for t in (table, mu, nu, last)] for _ in range(2)]
+    la.touched_update_scatter(*after[0], uid, *got, summed, count, stochastic_rounding=sr, **HYPER)
+    la.touched_update_scatter_reference(*after[1], uid, *got, summed, count, stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert la.touched_update_scatter.launches == touched + 1
+    torch.testing.assert_close(after[0][0], after[1][0], **TABLE_TOL)
+    assert all(_same_bits(a, b) for a, b in zip(after[0][1:], after[1][1:]))
+    outside = torch.ones(rows, dtype=torch.bool, device=cuda)
+    outside[uid[:n_real].long()] = False
+    for a, start in zip(after[0], (table, mu, nu, last)):
+        assert _same_bits(a[outside], start[outside])
+    assert torch.all(after[0][3][uid[:n_real].long()] == count)
+    assert torch.all(after[0][0][0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,nu_dtype,sr", LAZY_MOMENTS)
+@pytest.mark.parametrize("rows,D,count,terms", [(4096, 256, 900, 64), (999, 36, 70, 64), (100, 4, 5, 64),
+                                                (300, 128, 400, 17)])
+def test_lazy_materialize_kernel_matches_plain_and_is_idempotent(cuda, rows, D, count, terms, mu_dtype,
+                                                                 nu_dtype, sr):
+    table, mu, nu, last, _, _ = _lazy_inputs(cuda, rows, D, 8, 4, count, mu_dtype, nu_dtype)
+    last[::7] = count  # rows already current
+    got = [t.clone() for t in (table, mu, nu, last)]
+    want = [t.clone() for t in (table, mu, nu, last)]
+    before = la.materialize.launches
+    la.materialize(*got, count, tail_terms=terms, stochastic_rounding=sr, **HYPER)
+    la.materialize_reference(*want, count, tail_terms=terms, stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert la.materialize.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+    assert all(_same_bits(a, b) for a, b in zip(got[1:], want[1:]))
+    assert torch.all(got[3] == count)
+    current = last == count
+    assert all(_same_bits(a[current], b[current]) for a, b in zip(got[:3], (table, mu, nu)))
+    again = [t.clone() for t in got]
+    la.materialize(*again, count, tail_terms=terms, stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_lazy_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    table, mu, nu, last, uid, summed = _lazy_inputs(cuda, 256, 8, 16, 4, 10, torch.float32, torch.float32)
+    rows = la.gather_catch_up(table, mu, nu, last, uid, 10, **HYPER)
+    with pytest.raises(ValueError, match="uid"):
+        la.gather_catch_up(table, mu, nu, last, uid.long(), 10, **HYPER)
+    with pytest.raises(ValueError, match="last_step"):
+        la.materialize(table, mu, nu, last.long(), 10, **HYPER)
+    with pytest.raises(ValueError, match="summed"):
+        la.touched_update_scatter(table, mu, nu, last, uid, *rows, summed[:, :4].contiguous(), 10, **HYPER)
+    with pytest.raises(ValueError, match="tail_terms"):
+        la.materialize(table, mu, nu, last, 10, tail_terms=65, **HYPER)
+    with pytest.raises(ValueError, match="bfloat16"):
+        la.materialize(table, mu, nu, last, 10, stochastic_rounding=True, **HYPER)

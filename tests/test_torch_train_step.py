@@ -7,7 +7,8 @@ steps on the same batches (dropout 0, since the two packages draw different
 random numbers) must agree: loss 1e-5 relative, moments atol 1e-6, weights
 atol 1e-6 (see ``_assert_weights_close`` for the few entries AdamW's division
 amplifies), BatchNorm buffers 1e-5 (float32 on both sides; matmul and
-reduction orders differ between XLA and PyTorch).
+reduction orders differ between XLA and PyTorch). The lazy optimizer's
+trajectory is held to the same tolerances, its ``last_step`` equal.
 Dropout is checked statistically and for its seeding. The Trainer's epoch
 loss and recall/NDCG are held against the JAX Trainer's on a tiny corpus.
 """
@@ -86,6 +87,8 @@ def _compare(port_model, opt_state, params, state, jax_opt_state):
     np.testing.assert_allclose(opt_state["emb_mu"].numpy(), np.asarray(jax_opt_state["emb_mu"]), rtol=0, atol=1e-6)
     np.testing.assert_allclose(opt_state["emb_nu"].numpy(), np.asarray(jax_opt_state["emb_nu"]), rtol=0, atol=1e-6)
     assert opt_state["count"] == int(jax_opt_state["count"])
+    if "last_step" in jax_opt_state:
+        np.testing.assert_array_equal(opt_state["last_step"].numpy(), np.asarray(jax_opt_state["last_step"]))
     for layer, bn in enumerate(state["batch_norms"]):
         for name in ("mean", "var", "count"):
             np.testing.assert_allclose(getattr(port_model.batch_norms[layer], name).numpy(),
@@ -97,10 +100,10 @@ def _compare(port_model, opt_state, params, state, jax_opt_state):
     _assert_weights_close(port_model.lap_projection.bias.detach().numpy(), params["lap_projection"]["b"])
 
 
-def _trajectory(sparse: bool, steps=5, warm=2):
+def _trajectory(sparse: bool, steps=5, warm=2, lazy=False):
     jax_ds, port_ds = _corpus()
     jax_model, params, state = _jax_model()
-    jax_opt = JaxOptimizer(**HP, use_pallas=False)
+    jax_opt = JaxOptimizer(**HP, use_pallas=False, lazy=lazy)
     jax_step = (ref_trainer.make_sparse_train_step if sparse else ref_trainer.make_train_step)(
         jax_model, jax_create_loss("dual"), jax_opt)
     opt_state = jax_opt.init(params)
@@ -112,7 +115,7 @@ def _trajectory(sparse: bool, steps=5, warm=2):
                                                ref_batching.to_device(jax_batches[i]), jax.random.key(i))
 
     model = _port_model(jax_model, params, state)
-    port_opt = FusedEmbeddingAdamW(**HP)
+    port_opt = FusedEmbeddingAdamW(**HP, lazy=lazy)
     port_state = port_opt.load_state(
         port_opt.init(model), model,
         convert.opt_state_from_jax(jax.tree.map(np.asarray, opt_state), dataclasses.asdict(jax_model.config)))
@@ -122,6 +125,10 @@ def _trajectory(sparse: bool, steps=5, warm=2):
     start = model.convs[0].query.weight.detach().clone()
     losses = []
     for i in range(warm, warm + steps):
+        if lazy:  # catch-up gaps: rows of this batch last written some steps ago
+            ids = torch.from_numpy(port_batching.make_grad_index(port_batches[i]).ids.astype(np.int64))
+            behind = port_state["count"] - port_state["last_step"][ids]
+            assert behind.max() >= 2
         params, state, opt_state, want = jax_step(params, state, opt_state,
                                                   ref_batching.to_device(jax_batches[i]), jax.random.key(i))
         got = port_step(port_batches[i], seed=i)
@@ -134,6 +141,57 @@ def _trajectory(sparse: bool, steps=5, warm=2):
 
 def test_sparse_train_step_reproduces_the_jax_trajectory():
     _trajectory(sparse=True)
+
+
+def test_lazy_sparse_train_step_reproduces_the_jax_lazy_trajectory():
+    """From a carried mid-training state with its last_step; the tables
+    compared are the lazy ones (rows not caught up), last_step equal."""
+    _trajectory(sparse=True, lazy=True)
+
+
+def test_lazy_steps_agree_with_eager_steps_of_the_port():
+    """Six steps over two batches with different item sets, so catch-up
+    gaps form: the losses within 2e-4 and, after materialize, the table and
+    moments within the JAX package's lazy-vs-eager tolerances
+    (tests/test_lazy_adamw.py); the padding row stays zero."""
+    _, port_ds = _corpus(seed=8)
+    jax_model, params, state = _jax_model(seed=8)
+    batches = list(port_batching.iterate_batches(port_ds, 16, seed=3))
+    pair = [batches[0], batches[-1]]  # the smallest and the largest bucket: other sessions, other items
+    runs = {}
+    for lazy in (False, True):
+        model = _port_model(jax_model, params, state)
+        opt = FusedEmbeddingAdamW(**HP, lazy=lazy)
+        opt_state = opt.init(model)
+        step = port_trainer.make_sparse_train_step(model, create_loss_function("dual"), opt, opt_state)
+        losses = [step(pair[i % 2], seed=100 + i).item() for i in range(6)]
+        opt.materialize(model, opt_state)
+        runs[lazy] = (model, opt_state, losses)
+    (eager, eager_state, eager_losses), (lazy, lazy_state, lazy_losses) = runs[False], runs[True]
+    np.testing.assert_allclose(lazy_losses, eager_losses, rtol=2e-4)
+    torch.testing.assert_close(lazy.item_embedding, eager.item_embedding, rtol=1e-3, atol=2e-6)
+    torch.testing.assert_close(lazy_state["emb_mu"], eager_state["emb_mu"], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(lazy_state["emb_nu"], eager_state["emb_nu"], rtol=1e-3, atol=1e-10)
+    assert torch.all(lazy_state["last_step"] == 6) and lazy_state["count"] == 6
+    assert torch.all(lazy.item_embedding[0] == 0) and torch.all(lazy_state["emb_mu"][0] == 0)
+
+
+def test_opt_state_from_jax_carries_last_step():
+    jax_model, params, _ = _jax_model(seed=9)
+    cfg = dataclasses.asdict(jax_model.config)
+    lazy_state = JaxOptimizer(**HP, use_pallas=False, lazy=True).init(params)
+    lazy_state["last_step"] = jnp.arange(lazy_state["last_step"].shape[0], dtype=jnp.int32) % 7
+    lazy_state["count"] = jnp.asarray(9, jnp.int32)
+    carried = convert.opt_state_from_jax(jax.tree.map(np.asarray, lazy_state), cfg)
+    assert carried["last_step"].dtype == torch.int32
+    np.testing.assert_array_equal(carried["last_step"].numpy(), np.asarray(lazy_state["last_step"]))
+    model = _port_model(jax_model, params, _jax_model(seed=9)[2])
+    opt = FusedEmbeddingAdamW(**HP, lazy=True)
+    loaded = opt.load_state(opt.init(model), model, carried)
+    assert loaded["count"] == 9 and torch.equal(loaded["last_step"], carried["last_step"])
+    assert set(opt.export_state(loaded, model)) == set(carried)
+    eager = convert.opt_state_from_jax(jax.tree.map(np.asarray, JaxOptimizer(**HP, use_pallas=False).init(params)), cfg)
+    assert "last_step" not in eager
 
 
 def test_dense_train_step_reproduces_the_jax_trajectory():
@@ -294,8 +352,9 @@ def test_factories_default_to_the_card_and_raise_without_one():
 def test_unported_options_raise_naming_the_roadmap():
     model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
                                   laplacian_k=2, device="cpu")
+    _, port_ds = _corpus(seed=10, sessions=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FusedEmbeddingAdamW(1e-3, lazy=True)
+        next(port_batching.iterate_batches(port_ds, 4, engine="native"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_trainer.Trainer(model, lambda epoch: iter(()), lambda: iter(()), chain=32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
