@@ -46,6 +46,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
      rows 0 .. 65 and several hundred steps behind, uid 0 and a sentinel
      tail: weights TABLE_TOL, moments and last_step equal, rows outside uid
      unchanged; materialize timed from single calls on a restored state.
+     Node dropout at [512, 56, 256], rate 0.1, forward and backward equal to
+     the plain version bit for bit.
   8. the training slice at full width: seeded synthetic sessions through
      SessionDataset and iterate_batches(batch_size=512), a Trainer epoch of
      6 sparse steps over all four buckets, 6 more sparse steps on one batch
@@ -64,10 +66,20 @@ Phases, each fatal on failure (nothing is caught and carried on):
      same losses and metrics; the seconds and bytes of every checkpoint
      save and restore; a Recommender on the best checkpoint; two lazy steps
      against a CPU copy; six lazy and six eager steps after materialize.
+     Every train step with dropout counts 4 node-dropout launches (2 layers,
+     forward and backward). Then the chained path: Trainer.train() with
+     chain=CHAIN on a corpus whose smallest bucket forms a full group and a
+     sub-chain, against the unchained run of the same seed (history and state
+     equal bit for bit, both chained counters above zero, the same counts per
+     step); a replayed lazy step against the eager one; eager sparse groups
+     of 4 against eager steps.
   9. a torch.profiler breakdown of sparse train steps, and the attention
      kernels timed once more at a training batch's own adjacency (sparser
      than the 0.3 of phase 7), with that density and its bound; beside them
-     lazy steps (rows a few steps behind, then 1,000) and one materialize.
+     lazy steps (rows a few steps behind, then 1,000) and one materialize;
+     lazy steps at N = 56 at chain 1 and chain TIMED_CHAIN (wall and device
+     ms per step, profile, host launch calls, graphs, capture seconds, pool
+     bytes).
  10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -93,10 +105,12 @@ from gat_recommendation_torch.data.batching import (
     SessionDataset,
     iterate_batches,
     make_grad_index,
+    stack_batches,
+    stack_grad_indices,
     to_device,
 )
 from gat_recommendation_torch.models.registry import create_model
-from gat_recommendation_torch.ops import _build
+from gat_recommendation_torch.ops import _build, step_block
 from gat_recommendation_torch.ops.embedding_adamw import (
     embedding_adamw,
     embedding_adamw_reference,
@@ -109,6 +123,8 @@ from gat_recommendation_torch.ops.lazy_adamw import (
     touched_update_scatter,
     touched_update_scatter_reference,
 )
+from gat_recommendation_torch.ops.masked import dropout as node_dropout_reference
+from gat_recommendation_torch.ops.node_dropout import node_dropout
 from gat_recommendation_torch.ops.score_chunkmax import (
     score_chunkmax,
     score_chunkmax_reference,
@@ -131,15 +147,28 @@ from gat_recommendation_torch.train.losses import create_loss_function
 from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
 from gat_recommendation_torch.train.trainer import (
     Trainer,
+    make_chained_sparse_train_step,
     make_eval_step,
     make_sparse_train_step,
     make_train_step,
+    next_steps_block,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # outside the tensor cores (the kernels use no TF32).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# One float32 instruction per lane per clock: the 67 TFLOP/s count an FMA as two.
+FP32_INSTRUCTIONS_PER_S = FP32_FLOP_PER_S / 2
+# 32-bit integer instructions: 64 lanes an SM and clock, half the float32 lanes.
+INT32_INSTRUCTIONS_PER_S = FP32_INSTRUCTIONS_PER_S / 2
+# The counter hash and the keep test, per element: two rounds of mix32 (eight
+# shifts, xors and multiplies each), three xors and the shift and compare.
+HASH_INSTRUCTIONS = 21
+# A term of the lazy catch-up series, per element: three FMUL, two FADD and an
+# IEEE division (__fdiv_rn: a reciprocal, its Newton steps and the rounding
+# check, about 8 instructions).
+SERIES_INSTRUCTIONS = 13
 
 NUM_ITEMS = 466_865  # the reference catalog
 NUM_EDGES = 737_716  # the reference co-occurrence graph's edge count
@@ -169,6 +198,11 @@ LAZY_GAPS = list(range(66)) + [200, 300, 700]
 LAZY_TABLE_TOL = dict(rtol=1e-3, atol=2e-6)
 # A resumed lazy train() against an uninterrupted one: train losses.
 RESUME_LOSS_RTOL = 1e-5
+# Phase 8's chained Trainer: CHAIN steps a group, on a corpus of CHAIN_SESSIONS
+# whose smallest node bucket holds a full group and a SUBCHAIN-long rest.
+CHAIN, CHAIN_SESSIONS = 10, 13_500
+# Phase 9: chain 1 against a group of TIMED_CHAIN batches of the N = 56 bucket.
+TIMED_CHAIN = 32
 
 REPLACES = {
     "session_attention": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
@@ -180,6 +214,7 @@ REPLACES = {
     "lazy_gather_catch_up": "gat_recommendation_tpu/train/optimizers.py:259",
     "lazy_touched_update": "gat_recommendation_tpu/train/optimizers.py:280",
     "lazy_materialize": "gat_recommendation_tpu/train/optimizers.py:312",
+    "node_dropout": "gat_recommendation_tpu/ops/masked.py:95",
 }
 SOURCES = {
     "session_attention": "gat_recommendation_torch/csrc/session_attention.cu",
@@ -190,11 +225,16 @@ SOURCES = {
     "lazy_gather_catch_up": "gat_recommendation_torch/csrc/lazy_adamw.cu",
     "lazy_touched_update": "gat_recommendation_torch/csrc/lazy_adamw.cu",
     "lazy_materialize": "gat_recommendation_torch/csrc/lazy_adamw.cu",
+    "node_dropout": "gat_recommendation_torch/csrc/node_dropout.cu",
 }
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -265,8 +305,28 @@ def timings(kernel, plain, library, calls: int = 20, reps: int = 10, eager_reps:
     }
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
+def step_row(count: int) -> torch.Tensor:
+    """The step block's row of the step that brings the count to `count`, on
+    the card. A kernel that reads the step block is timed from a CUDA graph
+    with such a row: given an int, its wrapper would copy a row from the host
+    at every call, which a graph cannot replay (the wrapper raises)."""
+    return step_block.one_row(count, b1=ADAMW["b1"], b2=ADAMW["b2"], device=torch.device("cuda", 0))
+
+
+def seed_on_card(seed: int) -> torch.Tensor:
+    """A dropout seed where the attention kernels read it (as `step_row`)."""
+    return torch.tensor(step_block.as_int64(seed), device=torch.device("cuda", 0))
+
+
+def bound_ms(n_bytes: float, n_flops: float, n_instructions: float = 0.0,
+             n_int_instructions: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the work over the
+    peak for its type: float32 operations, or, where an operation is a
+    sequence (the IEEE division), issued float32 instructions; 32-bit integer
+    instructions (the counter hash) at the integer lanes' rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_flops / FP32_FLOP_PER_S, n_instructions / FP32_INSTRUCTIONS_PER_S,
+                n_int_instructions / INT32_INSTRUCTIONS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -680,18 +740,19 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
 
     plain.inputs, plain.grad = (q, k, v), dout
     library.inputs, library.grad = (qh, kh, vh), doh
+    held = seed_on_card(seed)
     fwd.update(timings(
-        lambda: session_attention(q, k, v, adj, HEADS, dropout_p, seed),
+        lambda: session_attention(q, k, v, adj, HEADS, dropout_p, held),
         lambda: plain(q, k, v),
         lambda: library(qh, kh, vh),
     ))
     both_plain, both_library = device_ms(both(plain)), device_ms(both(library))
     bwd.update({
-        "ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)),
+        "ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, held)),
         # the plain and library backward: forward plus backward minus the forward
         "plain_ms": both_plain - fwd["plain_ms"],
         "library_ms": both_library - fwd["library_ms"],
-        "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, seed)),
+        "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, dropout_p, held)),
     })
     return {"forward": fwd, "backward": bwd}
 
@@ -714,14 +775,49 @@ def attention_at_adjacency(adj: torch.Tensor, gen: torch.Generator) -> dict:
     q, k, v, dout = (torch.randn(B, N, DIM, device=adj.device, generator=gen) for _ in range(4))
     edges = int(adj.sum())
     fwd_bound, bwd_bound = attention_bounds(B, N, edges)
+    seed = seed_on_card(5)
     return {
         "shape": f"B={B} N={N} H={HEADS} d={DIM // HEADS} p={DROPOUT}",
         "density": edges / (B * N * N),
-        "forward_ms": device_ms(lambda: session_attention(q, k, v, adj, HEADS, DROPOUT, 5)),
+        "forward_ms": device_ms(lambda: session_attention(q, k, v, adj, HEADS, DROPOUT, seed)),
         "forward_bound_ms": fwd_bound[0],
-        "backward_ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, DROPOUT, 5)),
+        "backward_ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, DROPOUT, seed)),
         "backward_bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1],
+    }
+
+
+def check_node_dropout(gen: torch.Generator) -> dict:
+    """Node dropout at the training batch's [512, 56, 256], rate 0.1: the
+    kernel, forward and backward (the same kernel on the output gradient),
+    against the plain version on the same seed, EQUAL bit for bit (the same
+    keep bits and the same float32 product). No PyTorch call computes the
+    same function: torch.nn.functional.dropout draws other bits."""
+    dev = torch.device("cuda")
+    x, g = (torch.randn(TRAIN_BATCH, 56, DIM, device=dev, generator=gen) for _ in range(2))
+    seed = 0x5EED_0000_0000_0002
+    results = []
+    for fn in (lambda t: node_dropout(t, DROPOUT, seed), lambda t: node_dropout_reference(t, DROPOUT, True, seed)):
+        leaf = x.clone().requires_grad_(True)
+        out = fn(leaf)
+        results.append((out.detach(), *torch.autograd.grad(out, leaf, g)))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*results)):
+        raise AssertionError("node_dropout: the kernel differs from the plain version, forward or backward")
+    kept = float((results[0][0] != 0).float().mean())
+    if abs(kept - (1 - DROPOUT)) > 1e-3:
+        raise AssertionError(f"node_dropout keeps {kept} of the elements at rate {DROPOUT}")
+    n = x.numel()
+    bound, bound_by = bound_ms(2 * 4 * n + 8, 0, n_int_instructions=HASH_INSTRUCTIONS * n)
+    held = seed_on_card(seed)
+    return {
+        "shape": f"[{TRAIN_BATCH}, 56, {DIM}] p={DROPOUT}",
+        "max_abs_err": max((a - b).abs().max().item() for a, b in zip(*results)),
+        "kept_share": kept,
+        **timings(lambda: node_dropout(x, DROPOUT, held),
+                  lambda: node_dropout_reference(x, DROPOUT, True, seed), None),
+        "bound_ms": bound,
+        "bound_by": bound_by,
     }
 
 
@@ -798,12 +894,14 @@ def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochast
         grad.zero_()
         grad.index_add_(0, rows, summed[:n_unique])
 
+    row3 = step_row(3)
+
     return {
         "shape": f"V={ROWS} D={DIM} U={U} unique={n_unique} moments={str(moment_dtype).split('.')[-1]}"
                  f"{'+sr' if stochastic else ''}",
         "max_abs_err": err,
         **timings(
-            lambda: sparse_adamw(*got, uid, summed, 3, stochastic_rounding=stochastic, **ADAMW),
+            lambda: sparse_adamw(*got, uid, summed, row3, stochastic_rounding=stochastic, **ADAMW),
             lambda: sparse_adamw_reference(*want, uid, summed, 3, stochastic_rounding=stochastic, **ADAMW),
             _fused_adamw_library(*[t.clone() for t in (table, mu, nu)], grad, scatter),
             calls=10, reps=5, eager_reps=10,
@@ -831,11 +929,12 @@ def check_embedding_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stoch
     m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
     n_bytes = ROWS * DIM * (3 * 4 + 4 * m_bytes)  # w and grad read, w written; mu, nu read and written
     bound, bound_by = bound_ms(n_bytes, 16 * ROWS * DIM)
+    row3 = step_row(3)
     return {
         "shape": f"V={ROWS} D={DIM} moments={str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}",
         "max_abs_err": err,
         **timings(
-            lambda: embedding_adamw(*got, grad, 3, stochastic_rounding=stochastic, **ADAMW),
+            lambda: embedding_adamw(*got, grad, row3, stochastic_rounding=stochastic, **ADAMW),
             lambda: embedding_adamw_reference(*want, grad, 3, stochastic_rounding=stochastic, **ADAMW),
             _fused_adamw_library(*[t.clone() for t in (table, mu, nu)], grad),
             calls=10, reps=5, eager_reps=10,
@@ -899,6 +998,7 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
     restored before each."""
     state, uid, summed, n_unique = _lazy_inputs(gen, moment_dtype)
     table, mu, nu, last = state
+    row = step_row(LAZY_COUNT)
     label = f"moments={str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}"
     m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
     row_bytes = DIM * (4 + 2 * m_bytes)  # a table row and its two moments
@@ -916,15 +1016,16 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
         raise AssertionError("lazy_gather_catch_up: sentinel slots must hold zeros")
     real = uid[:n_unique].long()
     terms = (LAZY_COUNT - 1 - last[real]).clamp(0, 64)
-    # The series' operations: about 6 an element and term, for elements whose mu is not 0.
+    # The series' instructions: SERIES_INSTRUCTIONS an element and term, for
+    # elements whose mu is not 0 (the kernels skip the rest).
     live = (mu != 0).sum(1)
     bound, bound_by = bound_ms(n_unique * (row_bytes + 4) + 4 * uid.numel() + 3 * 4 * uid.numel() * DIM,
-                               6 * int((terms * live[real]).sum()))
+                               0, SERIES_INSTRUCTIONS * int((terms * live[real]).sum()))
     rows["lazy_gather_catch_up"] = {
         "shape": f"V={ROWS} D={DIM} U={uid.numel()} unique={n_unique} {label}",
         "max_abs_err": (got[0] - want[0]).abs().max().item(), "moment_max_ulp": ulp,
         "terms_mean": terms.float().mean().item(),
-        **timings(lambda: gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW),
+        **timings(lambda: gather_catch_up(*state, uid, row, **ADAMW),
                   lambda: gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW), None,
                   calls=10, reps=5, eager_reps=10),
         "bound_ms": bound, "bound_by": bound_by,
@@ -950,7 +1051,7 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
     rows["lazy_touched_update"] = {
         "shape": f"V={ROWS} D={DIM} U={uid.numel()} unique={n_unique} {label}",
         "max_abs_err": (kern[0] - plain[0]).abs().max().item(),
-        **timings(lambda: touched_update_scatter(*kern, uid, *got, summed, LAZY_COUNT,
+        **timings(lambda: touched_update_scatter(*kern, uid, *got, summed, row,
                                                  stochastic_rounding=stochastic, **ADAMW),
                   lambda: touched_update_scatter_reference(*plain, uid, *got, summed, LAZY_COUNT,
                                                            stochastic_rounding=stochastic, **ADAMW),
@@ -973,7 +1074,8 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
     del plain
     lag = (LAZY_COUNT - last).clamp_min(0)
     behind = int((lag > 0).sum())
-    bound, bound_by = bound_ms(2 * behind * row_bytes + 2 * 4 * ROWS, 6 * int((lag.clamp_max(64) * live).sum()))
+    bound, bound_by = bound_ms(2 * behind * row_bytes + 2 * 4 * ROWS, 0,
+                               SERIES_INSTRUCTIONS * int((lag.clamp_max(64) * live).sum()))
 
     def restore():
         for dst, src in zip(kern, state):
@@ -998,15 +1100,15 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
 # ---------------------------------------------------------------------------
 
 
-def make_dataset(rng: np.random.Generator) -> SessionDataset:
+def make_dataset(rng: np.random.Generator, sessions: int = NUM_SESSIONS) -> SessionDataset:
     """Seeded synthetic sessions: heavy small-session skew (geometric lengths,
     3..50 events) plus some long ones so that every node bucket fills, items
     drawn from a window of nearby ids so that the graph's edges are induced."""
-    lengths = np.clip(rng.geometric(0.25, NUM_SESSIONS) + 2, 3, 50)
-    lengths[: NUM_SESSIONS // 4] = rng.integers(12, 51, NUM_SESSIONS // 4)
+    lengths = np.clip(rng.geometric(0.25, sessions) + 2, 3, 50)
+    lengths[: sessions // 4] = rng.integers(12, 51, sessions // 4)
     total = int(lengths.sum())
-    sid = np.repeat(np.arange(NUM_SESSIONS), lengths)
-    start = np.repeat(rng.integers(1, NUM_ITEMS - 200, NUM_SESSIONS), lengths)
+    sid = np.repeat(np.arange(sessions), lengths)
+    start = np.repeat(rng.integers(1, NUM_ITEMS - 200, sessions), lengths)
     items = start + rng.integers(0, 120, total)
     return SessionDataset(
         (sid, np.arange(total), items), make_edge_arrays(rng),
@@ -1040,6 +1142,7 @@ def launch_counts() -> dict:
         "lazy_gather_catch_up": gather_catch_up.launches,
         "lazy_touched_update": touched_update_scatter.launches,
         "lazy_materialize": materialize.launches,
+        "node_dropout": node_dropout.launches,
     }
 
 
@@ -1049,6 +1152,7 @@ def reset_launch_counts() -> None:
     score_chunkmax.launches = score_chunkmax.tile_launches = 0
     sparse_adamw.launches = embedding_adamw.launches = 0
     gather_catch_up.launches = touched_update_scatter.launches = materialize.launches = 0
+    node_dropout.launches = 0
 
 
 def expect_launches(what: str, **want) -> dict:
@@ -1113,7 +1217,8 @@ def train_full_width(by_bucket: dict, epoch: list) -> dict:
         raise AssertionError(f"sparse epoch loss {epoch_loss}")
     n_sparse = len(epoch)
     expect_launches("sparse Trainer epoch", session_attention=2 * n_sparse,
-                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse)
+                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse,
+                    node_dropout=4 * n_sparse)
 
     step = make_sparse_train_step(model, loss_fn, trainer.optimizer, opt_state)
     repeated = to_device((by_bucket[16][0], make_grad_index(by_bucket[16][0])), dev)
@@ -1122,7 +1227,8 @@ def train_full_width(by_bucket: dict, epoch: list) -> dict:
         raise AssertionError(f"repeated-batch losses must be finite and fall: {losses}")
     n_sparse += 6
     expect_launches("sparse steps", session_attention=2 * n_sparse,
-                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse)
+                    session_attention_backward=2 * n_sparse, sparse_adamw=n_sparse,
+                    node_dropout=4 * n_sparse)
 
     dense = Trainer(model, lambda e: iter([by_bucket[8][0], by_bucket[56][0]]), lambda: iter(()),
                     optimizer=trainer.optimizer, loss_fn=loss_fn, seed=7)
@@ -1132,7 +1238,7 @@ def train_full_width(by_bucket: dict, epoch: list) -> dict:
         raise AssertionError(f"dense epoch loss {dense_loss}, count {opt_state['count']}")
     expect_launches("sparse and dense steps", session_attention=2 * (n_sparse + 2),
                     session_attention_backward=2 * (n_sparse + 2), sparse_adamw=n_sparse,
-                    embedding_adamw=2)
+                    embedding_adamw=2, node_dropout=4 * (n_sparse + 2))
 
     metrics = trainer.evaluate()
     if set(metrics) != {"recall@10", "ndcg@10", "recall@20", "ndcg@20"} or not all(
@@ -1142,7 +1248,7 @@ def train_full_width(by_bucket: dict, epoch: list) -> dict:
     launches = expect_launches(
         "training and one eval batch", session_attention=2 * (n_sparse + 2) + 2,
         session_attention_backward=2 * (n_sparse + 2), sparse_adamw=n_sparse, embedding_adamw=2,
-        score_chunkmax=1)
+        score_chunkmax=1, node_dropout=4 * (n_sparse + 2))
 
     # Outside the counted path: the eval step against the dense oracle.
     eval_batch = to_device(by_bucket[56][0], dev)
@@ -1235,7 +1341,8 @@ def train_lazy_full_width(by_bucket: dict, epoch: list, workdir: Path) -> dict:
     launches = expect_launches(
         "lazy Trainer.train()", session_attention=2 * (n_steps + n_evals),
         session_attention_backward=2 * n_steps, score_chunkmax=n_evals,
-        lazy_gather_catch_up=n_steps, lazy_touched_update=n_steps, lazy_materialize=n_evals)
+        lazy_gather_catch_up=n_steps, lazy_touched_update=n_steps, lazy_materialize=n_evals,
+        node_dropout=4 * n_steps)
     if straight.opt_state["count"] != n_steps or not bool(torch.all(straight.opt_state["last_step"] == n_steps)):
         raise AssertionError("after train() the lazy state must be materialized at the step count")
     if not all(np.isfinite(want["train_loss"])) or len(want["val_metrics"]) != 3:
@@ -1296,6 +1403,214 @@ def lazy_against_eager(batches: list, loss_fn) -> dict:
     return {"table_diff_max": (lazy - eager).abs().max().item(),
             "loss_rel_diff_max": float(np.max(np.abs(np.subtract(lazy_losses, eager_losses))
                                               / np.abs(eager_losses)))}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8, chained: Trainer(chain=CHAIN) and graph replays against eager steps
+# ---------------------------------------------------------------------------
+
+
+def chained_corpus() -> tuple[list, list]:
+    """One shuffled epoch of batches of 512 from CHAIN_SESSIONS seeded
+    sessions (make_dataset's mix), and the validation batches: the first
+    CHAIN of the smallest node bucket (one chained evaluation) and one of the
+    largest (a single eval step)."""
+    t0 = time.perf_counter()
+    epoch = list(iterate_batches(make_dataset(np.random.default_rng(3), CHAIN_SESSIONS), TRAIN_BATCH,
+                                 shuffle=True, seed=0))
+    counts = {n: sum(b.nodes_per_session == n for b in epoch) for n in BUCKETS}
+    if counts[8] < CHAIN + Trainer.SUBCHAIN or not all(counts.values()):
+        raise AssertionError(f"the chained corpus's buckets {counts} hold no full group and sub-chain")
+    val = [b for b in epoch if b.nodes_per_session == 8][:CHAIN] + [b for b in epoch if b.nodes_per_session == 56][:1]
+    log(f"[phase 8] chained corpus: {CHAIN_SESSIONS} sessions, {len(epoch)} batches of {TRAIN_BATCH} "
+        f"({counts}) assembled in {time.perf_counter() - t0:.1f} s")
+    return epoch, val
+
+
+def _state_tensors(model, state: dict) -> list:
+    """Everything a sparse step writes: parameters and buffers, the table's
+    moments and last_step, the other parameters' AdamW state."""
+    rest = [t for s in state["rest"].state.values() for t in s.values()]
+    table_state = [state[k] for k in ("emb_mu", "emb_nu", "last_step") if k in state]
+    return [*model.state_dict().values(), *table_state, *rest]
+
+
+def _graph_stats(cache) -> dict:
+    return {"graphs": len(cache.graphs), "capture_s": cache.capture_seconds, "pool_bytes": cache.pool_bytes}
+
+
+def train_chained_full_width(epoch: list, val: list, workdir: Path) -> dict:
+    """This slice's path: Trainer.train() with chain=CHAIN against the
+    unchained Trainer.train() of the same seed (lazy, dropout 0.1, 2 epochs
+    of `epoch`, an evaluation of `val` after each): the same losses and
+    metrics, the same table, moments, last_step, other parameters' state and
+    BatchNorm buffers, bit for bit. The chained run is counted: per step 2
+    attention forward, 2 backward, 1 gather, 1 touched update; per evaluated
+    batch 2 forward and 1 scoring launch; per evaluation 1 materialize."""
+    loss_fn = create_loss_function("dual")
+
+    def trainer(out: str, chain: int) -> Trainer:
+        return Trainer(make_training_model(DROPOUT), lambda e: iter(epoch), lambda: iter(val),
+                       optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
+                       output_dir=workdir / out, max_epochs=2, checkpoint_every=2, loss_fn=loss_fn,
+                       seed=7, sparse_embedding_grads=True, chain=chain)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = trainer("unchained", 1)
+    want = plain.train()
+    plain_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    chained = trainer("chained", CHAIN)
+    got = chained.train()
+    chained_s = time.perf_counter() - t0
+    n_steps, n_evals = 2 * len(epoch), 2
+    launches = expect_launches(
+        "chained Trainer.train()", session_attention=2 * (n_steps + n_evals * len(val)),
+        session_attention_backward=2 * n_steps, score_chunkmax=n_evals * len(val),
+        lazy_gather_catch_up=n_steps, lazy_touched_update=n_steps, lazy_materialize=n_evals,
+        node_dropout=4 * n_steps)
+    if got != want:
+        raise AssertionError(f"chained train() differs from the unchained one: {got} vs {want}")
+    pairs = list(zip(_state_tensors(chained.model, chained.opt_state), _state_tensors(plain.model, plain.opt_state)))
+    if len(pairs) < 10 or not all(_same_bits(a, b) for a, b in pairs):
+        raise AssertionError("chained train() left a different state than the unchained one")
+    # Per epoch: the full group of the smallest bucket and its SUBCHAIN rest;
+    # per evaluation the full group of `val`.
+    if chained.chained_dispatches != 2 * 2 or chained.chained_eval_dispatches != n_evals:
+        raise AssertionError(f"chained dispatches {chained.chained_dispatches} (train), "
+                             f"{chained.chained_eval_dispatches} (eval)")
+    return {
+        "chain": CHAIN, "steps": n_steps, "evaluations": n_evals, "launches": launches,
+        "train_loss": got["train_loss"], "val_metrics": got["val_metrics"],
+        "chained_dispatches": chained.chained_dispatches,
+        "chained_eval_dispatches": chained.chained_eval_dispatches,
+        "state_tensors_equal": len(pairs),
+        "train_wall_s_unchained": plain_s, "train_wall_s_chained": chained_s,
+        "train_graphs": _graph_stats(chained._chained_step.graphs),
+        "eval_graphs": _graph_stats(chained._chained_eval.graphs),
+    }
+
+
+def graph_steps_against_eager(batches: list, lazy: bool, groups: list) -> dict:
+    """Full width, dropout 0.1: the same steps eagerly (one at a time) and
+    through the chained step's graphs, from two copies of one seeded state,
+    `groups` giving the chain lengths in turn (a length that repeats is a pure
+    replay): losses and the whole state equal bit for bit. The chained run's
+    launch counts are returned."""
+    dev = torch.device("cuda")
+    loss_fn = create_loss_function("dual")
+    runs = []
+    for chained in (False, True):
+        model = make_training_model(DROPOUT)
+        opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=lazy)
+        state = opt.init(model)
+        single = make_sparse_train_step(model, loss_fn, opt, state)
+        step = make_chained_sparse_train_step(model, loss_fn, opt, state)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, i = [], 0
+        for n in groups:
+            group = [batches[(i + j) % len(batches)] for j in range(n)]
+            gidxs = [make_grad_index(b) for b in group]
+            seeds = [500 + i + j for j in range(n)]
+            if chained:
+                stacked = to_device((stack_batches(group), stack_grad_indices(gidxs)), dev)
+                losses.append(step(*stacked, next_steps_block(model, opt, state, seeds, dev)))
+            else:
+                losses += [single(to_device((b, g), dev), s).reshape(1) for b, g, s in zip(group, gidxs, seeds)]
+            i += n
+        torch.cuda.synchronize()
+        runs.append((torch.cat(losses), _state_tensors(model, state), launch_counts()))
+        del model, opt, state, single, step
+    (want, want_state, want_launches), (got, got_state, got_launches) = runs
+    if not torch.equal(got, want) or not all(_same_bits(a, b) for a, b in zip(got_state, want_state)):
+        raise AssertionError(f"graph replays differ from eager steps (lazy={lazy}, groups {groups})")
+    if got_launches != want_launches:
+        raise AssertionError(f"graph replays counted {got_launches}, eager steps {want_launches}")
+    torch.cuda.empty_cache()
+    return {"lazy": lazy, "groups": groups, "steps": sum(groups), "losses": got.tolist(),
+            "state_tensors_equal": len(got_state), "launches": got_launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9, chained: wall time per step at chain 1 and chain TIMED_CHAIN
+# ---------------------------------------------------------------------------
+
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch")
+
+
+def group_profile(run, steps: int, wall_ms: float) -> dict:
+    """A torch.profiler trace of one call of `run` (`steps` steps): the
+    card's busy ms per step, its idle share against `wall_ms` (per step,
+    unprofiled), its operations per step, and the host's launch calls
+    (kernel launches, copies, sets, graph launches of the CUDA runtime and
+    driver) per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    calls = {e.key: e.count for e in prof.key_averages() if e.key in HOST_LAUNCH_CALLS}
+    return {
+        "device_busy_ms_per_step": busy if rows else "not measured",
+        "device_idle_share": 1.0 - busy / wall_ms if rows else "not measured",
+        "device_ops_per_step": sum(e.count for e in rows) / steps,
+        "host_launch_calls_per_step": sum(calls.values()) / steps if calls else "not measured",
+        "host_launch_calls": calls,
+    }
+
+
+def chain_timing(epoch: list) -> dict:
+    """Lazy steps at full width, B = 512, N = 56, dropout 0.1, float32
+    moments, over TIMED_CHAIN batches of the N = 56 bucket (the corpus's,
+    cycled), batches and indexes already on the card: chain 1 (the unchained
+    step) and one chained group (one graph of a step, replayed per slot). Per
+    step: wall ms (host clock, each group synchronised at its end, median of
+    3 groups after the first), device ms (CUDA events around a group), and a
+    profile of one group; for the chain the graphs, capture seconds and pool
+    bytes."""
+    dev = torch.device("cuda")
+    loss_fn = create_loss_function("dual")
+    n56 = [b for b in epoch if b.nodes_per_session == 56]
+    batches = [n56[i % len(n56)] for i in range(TIMED_CHAIN)]
+    gidxs = [make_grad_index(b) for b in batches]
+    singles = [to_device((b, g), dev) for b, g in zip(batches, gidxs)]
+    stacked = to_device((stack_batches(batches), stack_grad_indices(gidxs)), dev)
+    model = make_training_model(DROPOUT)
+    opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True)
+    state = opt.init(model)
+    single = make_sparse_train_step(model, loss_fn, opt, state)
+    chained = make_chained_sparse_train_step(model, loss_fn, opt, state)
+    seeds = list(range(TIMED_CHAIN))
+    runs = {
+        "chain_1": lambda: [single(x, s) for x, s in zip(singles, seeds)],
+        f"chain_{TIMED_CHAIN}": lambda: chained(*stacked, next_steps_block(model, opt, state, seeds, dev)),
+    }
+    out = {"shape": f"B={TRAIN_BATCH} N=56 U={stacked[1].uid.shape[1]} lazy f32 dropout={DROPOUT}"}
+    for label, run in runs.items():
+        run()  # the graph's capture happens here
+        torch.cuda.synchronize()
+        walls, device = [], []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / TIMED_CHAIN)
+            device.append(start.elapsed_time(end) / TIMED_CHAIN)
+        wall = statistics.median(walls)
+        out[label] = {"wall_ms_per_step": wall, "wall_ms_per_step_runs": walls,
+                      "device_elapsed_ms_per_step": statistics.median(device),
+                      **group_profile(run, TIMED_CHAIN, wall)}
+    out[f"chain_{TIMED_CHAIN}"].update(_graph_stats(chained.graphs))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1482,6 +1797,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     score_eval = check_scoring(gen, B=TRAIN_BATCH)
     log(f"[phase 7] score_chunkmax {json.dumps(score_eval)}")
+    dropout_row = check_node_dropout(gen)
+    log(f"[phase 7] node_dropout {json.dumps(dropout_row)}")
     torch.cuda.empty_cache()
     lazy_rows = {}
     for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
@@ -1502,10 +1819,22 @@ def main() -> int:
     log(f"[phase 8] lazy {json.dumps(lazy_trained)}")
     lazy_launches = lazy_trained["launches"]
     torch.cuda.empty_cache()
+    chain_epoch, chain_val = chained_corpus()
+    with tempfile.TemporaryDirectory() as tmp:
+        chained_trained = train_chained_full_width(chain_epoch, chain_val, Path(tmp))
+    log(f"[phase 8] chained {json.dumps(chained_trained)}")
+    torch.cuda.empty_cache()
+    replay = graph_steps_against_eager([by_bucket[56][0]], lazy=True, groups=[1, 1])
+    log(f"[phase 8] a replayed lazy step against the eager one {json.dumps(replay)}")
+    eager_group = graph_steps_against_eager(by_bucket[8], lazy=False, groups=[4, 4])
+    log(f"[phase 8] eager sparse groups of 4 against eager steps {json.dumps(eager_group)}")
+    chained_launches = {**chained_trained["launches"], "sparse_adamw": eager_group["launches"]["sparse_adamw"]}
 
     # Phase 9
     log(f"[phase 9] {json.dumps(train_profile)}")
     log(f"[phase 9] lazy {json.dumps(profile_lazy(create_loss_function('dual'), by_bucket))}")
+    torch.cuda.empty_cache()
+    log(f"[phase 9] chain {json.dumps(chain_timing(chain_epoch))}")
 
     # Phase 10: one row per kernel and path, every key in every row.
     kernels = []
@@ -1522,12 +1851,25 @@ def main() -> int:
          train_launches["embedding_adamw"]),
         *((name, "training_lazy", lazy_rows[(name, "f32")], lazy_launches[name])
           for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
+        ("node_dropout", "training", dropout_row, train_launches["node_dropout"]),
+        ("node_dropout", "training_lazy", dropout_row, lazy_launches["node_dropout"]),
+        # The chained path: the same kernels inside the CUDA graphs (materialize outside).
+        ("session_attention", "training_chained", train_attn[(56, DROPOUT)]["forward"],
+         chained_launches["session_attention"]),
+        ("session_attention_backward", "training_chained", train_attn[(56, DROPOUT)]["backward"],
+         chained_launches["session_attention_backward"]),
+        ("score_chunkmax", "training_chained", score_eval, chained_launches["score_chunkmax"]),
+        ("sparse_adamw", "training_chained", adamw[("sparse_adamw", "f32")], chained_launches["sparse_adamw"]),
+        *((name, "training_chained", lazy_rows[(name, "f32")], chained_launches[name])
+          for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
+        ("node_dropout", "training_chained", dropout_row, chained_launches["node_dropout"]),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
         # Which of a wrapper's two kernels the path ran, by the second counters.
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
-        counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches}[path]
+        counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
+                  "training_chained": chained_launches}[path]
         kernels.append({
             "name": name,
             "path": path,

@@ -12,8 +12,11 @@
 //     w  = w - lr * ((mu * ibc1) / (sqrt(nu * ibc2) + eps) + wd * w)
 // with c1 = (1 - b1) / b1, c2 = (1 - b2) / b2 (the contribution is added
 // BEFORE the decay multiply, so touched rows get b*m + (1-b)*g and the rest
-// b*m), ibc = 1 / (1 - b^count) computed by the caller in float32. uid values
-// outside [row_offset, row_offset + rows) touch nothing.
+// b*m), ibc = 1 / (1 - b^count) computed by the host in float32. uid values
+// outside [row_offset, row_offset + rows) touch nothing. Both updates read ibc
+// and the rounding seeds from the step's row of the step block (step_block.cuh):
+// the sparse one runs inside the chained train step's CUDA graphs, which would
+// freeze a by-value argument at the captured step.
 //
 // embedding_adamw: the same tail from a dense gradient,
 //     mu = b1 * mu + (1 - b1) * g,  nu = b2 * nu + (1 - b2) * (g * g).
@@ -43,6 +46,7 @@
 #include <stdint.h>
 
 #include "moment_io.cuh"
+#include "step_block.cuh"
 
 namespace {
 
@@ -51,8 +55,6 @@ constexpr int kThreads = 256;
 struct Hyper {
   float lr, b1, b2, eps, wd;
   float a1, a2;      // sparse: c1, c2; dense: 1 - b1, 1 - b2
-  float ibc1, ibc2;  // 1 / (1 - b^count), float32 from the caller
-  unsigned long long seed_mu, seed_nu;
   int sr_mu, sr_nu;  // stochastic rounding of a bf16 buffer
 };
 
@@ -69,8 +71,9 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ uid, int lo, 
 template <typename MT, typename NT, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(float* __restrict__ w, MT* __restrict__ mu, NT* __restrict__ nu,
-             const float* __restrict__ grad, const int* __restrict__ uid, int U, long long rows,
-             int d4, long long row_offset, Hyper hp) {
+             const float* __restrict__ grad, const int* __restrict__ uid,
+             const long long* __restrict__ step, int U, long long rows, int d4,
+             long long row_offset, Hyper hp) {
   const long long total = rows * d4;
   const long long first = (long long)blockIdx.x * kThreads;
   const long long e = first + threadIdx.x;
@@ -105,6 +108,10 @@ adamw_kernel(float* __restrict__ w, MT* __restrict__ mu, NT* __restrict__ nu,
     }
   }
   if (!live) return;
+  const float ibc1 = step_block::as_float(step, step_block::kIbc1);
+  const float ibc2 = step_block::as_float(step, step_block::kIbc2);
+  const unsigned long long seed_mu = step_block::as_seed(step, step_block::kSeedMu);
+  const unsigned long long seed_nu = step_block::as_seed(step, step_block::kSeedNu);
 
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
@@ -119,20 +126,21 @@ adamw_kernel(float* __restrict__ w, MT* __restrict__ mu, NT* __restrict__ nu,
       m[t] = __fadd_rn(__fmul_rn(hp.b1, m[t]), __fmul_rn(hp.a1, g[t]));
       n[t] = __fadd_rn(__fmul_rn(hp.b2, n[t]), __fmul_rn(hp.a2, __fmul_rn(g[t], g[t])));
     }
-    const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(n[t], hp.ibc2)), hp.eps);
+    const float den = __fadd_rn(__fsqrt_rn(__fmul_rn(n[t], ibc2)), hp.eps);
     const float upd =
-        __fadd_rn(__fdiv_rn(__fmul_rn(m[t], hp.ibc1), den), __fmul_rn(hp.wd, wv[t]));
+        __fadd_rn(__fdiv_rn(__fmul_rn(m[t], ibc1), den), __fmul_rn(hp.wd, wv[t]));
     wv[t] = __fsub_rn(wv[t], __fmul_rn(hp.lr, upd));
   }
   const unsigned long long idx = (unsigned long long)(row_offset + row) * (4ULL * d4) + (e % d4) * 4;
   store4(w + off, wv, 0, 0ULL, 0ULL);
-  store4(mu + off, m, hp.sr_mu, hp.seed_mu, idx);
-  store4(nu + off, n, hp.sr_nu, hp.seed_nu, idx);
+  store4(mu + off, m, hp.sr_mu, seed_mu, idx);
+  store4(nu + off, n, hp.sr_nu, seed_nu, idx);
 }
 
 template <bool kSparse>
-int launch(void* w, void* mu, void* nu, const void* grad, const void* uid, int U, long long rows,
-           int D, long long row_offset, int mu_bf16, int nu_bf16, const Hyper& hp, void* stream) {
+int launch(void* w, void* mu, void* nu, const void* grad, const void* uid, const void* step, int U,
+           long long rows, int D, long long row_offset, int mu_bf16, int nu_bf16, const Hyper& hp,
+           void* stream) {
   const long long total = rows * (D / 4);
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0) {
@@ -140,6 +148,7 @@ int launch(void* w, void* mu, void* nu, const void* grad, const void* uid, int U
     auto* wp = static_cast<float*>(w);
     auto* gp = static_cast<const float*>(grad);
     auto* up = static_cast<const int*>(uid);
+    auto* sp = static_cast<const long long*>(step);
     auto* mf = static_cast<float*>(mu);
     auto* nf = static_cast<float*>(nu);
     auto* mb = static_cast<__nv_bfloat16*>(mu);
@@ -147,16 +156,16 @@ int launch(void* w, void* mu, void* nu, const void* grad, const void* uid, int U
     const unsigned grid = (unsigned)blocks;
     if (mu_bf16 && nu_bf16)
       adamw_kernel<__nv_bfloat16, __nv_bfloat16, kSparse>
-          <<<grid, kThreads, 0, s>>>(wp, mb, nb, gp, up, U, rows, D / 4, row_offset, hp);
+          <<<grid, kThreads, 0, s>>>(wp, mb, nb, gp, up, sp, U, rows, D / 4, row_offset, hp);
     else if (mu_bf16)
       adamw_kernel<__nv_bfloat16, float, kSparse>
-          <<<grid, kThreads, 0, s>>>(wp, mb, nf, gp, up, U, rows, D / 4, row_offset, hp);
+          <<<grid, kThreads, 0, s>>>(wp, mb, nf, gp, up, sp, U, rows, D / 4, row_offset, hp);
     else if (nu_bf16)
       adamw_kernel<float, __nv_bfloat16, kSparse>
-          <<<grid, kThreads, 0, s>>>(wp, mf, nb, gp, up, U, rows, D / 4, row_offset, hp);
+          <<<grid, kThreads, 0, s>>>(wp, mf, nb, gp, up, sp, U, rows, D / 4, row_offset, hp);
     else
       adamw_kernel<float, float, kSparse>
-          <<<grid, kThreads, 0, s>>>(wp, mf, nf, gp, up, U, rows, D / 4, row_offset, hp);
+          <<<grid, kThreads, 0, s>>>(wp, mf, nf, gp, up, sp, U, rows, D / 4, row_offset, hp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -166,23 +175,22 @@ int launch(void* w, void* mu, void* nu, const void* grad, const void* uid, int U
 // Shapes are checked by the Python wrappers: table [rows, D] f32 with D % 4 == 0,
 // mu and nu [rows, D] f32 or bf16, uid [U] int32 ascending, summed [U, D] f32,
 // all contiguous and 16-byte aligned; rows * D / 4 / 256 blocks must fit a grid.
-// Both return cudaGetLastError().
+// `step` is the device address of the step's row of the step block (int64
+// fields, step_block.cuh) for both. Both return cudaGetLastError().
 extern "C" int sparse_adamw(void* table, void* mu, void* nu, const void* uid, const void* summed,
-                            int U, long long rows, int D, long long row_offset, int mu_bf16,
-                            int nu_bf16, int sr_mu, int sr_nu, unsigned long long seed_mu,
-                            unsigned long long seed_nu, float lr, float b1, float b2, float eps,
-                            float wd, float c1, float c2, float ibc1, float ibc2, void* stream) {
-  const Hyper hp = {lr, b1, b2, eps, wd, c1, c2, ibc1, ibc2, seed_mu, seed_nu, sr_mu, sr_nu};
-  return launch<true>(table, mu, nu, summed, uid, U, rows, D, row_offset, mu_bf16, nu_bf16, hp,
-                      stream);
+                            const void* step, int U, long long rows, int D, long long row_offset,
+                            int mu_bf16, int nu_bf16, int sr_mu, int sr_nu, float lr, float b1,
+                            float b2, float eps, float wd, float c1, float c2, void* stream) {
+  const Hyper hp = {lr, b1, b2, eps, wd, c1, c2, sr_mu, sr_nu};
+  return launch<true>(table, mu, nu, summed, uid, step, U, rows, D, row_offset, mu_bf16, nu_bf16,
+                      hp, stream);
 }
 
-extern "C" int embedding_adamw(void* w, void* mu, void* nu, const void* grad, long long rows,
-                               int D, long long row_offset, int mu_bf16, int nu_bf16, int sr_mu,
-                               int sr_nu, unsigned long long seed_mu, unsigned long long seed_nu,
-                               float lr, float b1, float b2, float eps, float wd, float omb1,
-                               float omb2, float ibc1, float ibc2, void* stream) {
-  const Hyper hp = {lr, b1, b2, eps, wd, omb1, omb2, ibc1, ibc2, seed_mu, seed_nu, sr_mu, sr_nu};
-  return launch<false>(w, mu, nu, grad, nullptr, 0, rows, D, row_offset, mu_bf16, nu_bf16, hp,
-                       stream);
+extern "C" int embedding_adamw(void* w, void* mu, void* nu, const void* grad, const void* step,
+                               long long rows, int D, long long row_offset, int mu_bf16,
+                               int nu_bf16, int sr_mu, int sr_nu, float lr, float b1, float b2,
+                               float eps, float wd, float omb1, float omb2, void* stream) {
+  const Hyper hp = {lr, b1, b2, eps, wd, omb1, omb2, sr_mu, sr_nu};
+  return launch<false>(w, mu, nu, grad, nullptr, step, 0, rows, D, row_offset, mu_bf16, nu_bf16,
+                       hp, stream);
 }

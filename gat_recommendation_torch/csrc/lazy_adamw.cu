@@ -38,8 +38,12 @@
 // Design: one warp per row (four rows a block); a row's min(m, terms) triples
 // (c1, c2, fac) are computed once by the warp's lanes into shared memory,
 // then each lane runs the series over its float4 columns. The b^j constants
-// travel in the kernel parameters (__grid_constant__), so a launch needs no
-// copy and can be captured in a CUDA graph.
+// and the other hyper-parameters travel in the kernel parameters
+// (__grid_constant__), so a launch needs no copy. The gather and the touched
+// update run inside the chained train step's CUDA graphs: they read the step
+// count, the bias denominators and the rounding seeds from the step's row of
+// the step block (step_block.cuh), which the host refills before each replay.
+// Materialize runs outside any graph and takes them by value.
 //
 // Bound on an H100 SXM (467,456 x 256 table, float32 moments): the gather
 // and the touched update move about 74 MB and 86 MB for 12,000 real rows of
@@ -55,6 +59,7 @@
 #include <stdint.h>
 
 #include "moment_io.cuh"
+#include "step_block.cuh"
 
 namespace {
 
@@ -65,13 +70,12 @@ constexpr int kMaxTerms = 64;
 struct Hyper {
   float lr, eps, wd;
   float b1, b2, omb1, omb2;    // touched update: b, 1 - b
-  float bc1, bc2;              // touched update: 1 - b^count, float32 from the caller
   float ln_b1, ln_b2, a_log;   // catch-up: log b1, log b2, log1p(-lr * wd)
   float b1_pow[kMaxTerms];     // float32(b1^j), j = 1 .. terms
   float b2_pow[kMaxTerms];
-  unsigned long long seed_mu, seed_nu;
+  unsigned long long seed_mu, seed_nu;  // materialize (the touched update reads its step's row)
   int sr_mu, sr_nu;  // stochastic rounding of a bf16 buffer
-  int count;         // the step number after this update
+  int count;         // materialize: the step number the table catches up to
   int terms;         // series length, <= kMaxTerms
 };
 
@@ -138,8 +142,9 @@ __global__ void __launch_bounds__(kThreads)
 gather_catch_up_kernel(const float* __restrict__ table, const MT* __restrict__ mu,
                        const NT* __restrict__ nu, const int* __restrict__ last_step,
                        const int* __restrict__ uid, float* __restrict__ w_c,
-                       float* __restrict__ mu_c, float* __restrict__ nu_c, int U, long long rows,
-                       int d4, const __grid_constant__ Hyper hp) {
+                       float* __restrict__ mu_c, float* __restrict__ nu_c,
+                       const long long* __restrict__ step, int U, long long rows, int d4,
+                       const __grid_constant__ Hyper hp) {
   __shared__ float s_c1[kWarps][kMaxTerms], s_c2[kWarps][kMaxTerms], s_fac[kWarps][kMaxTerms];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long slot = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -156,8 +161,8 @@ gather_catch_up_kernel(const float* __restrict__ table, const MT* __restrict__ m
     return;
   }
   const int s0 = __shfl_sync(0xffffffffu, lane == 0 ? last_step[id] : 0, 0);
-  const Series s = row_series(hp, s0, max(hp.count - 1 - s0, 0), s_c1[warp], s_c2[warp],
-                              s_fac[warp], lane);
+  const Series s = row_series(hp, s0, max(step_block::count(step) - 1 - s0, 0), s_c1[warp],
+                              s_c2[warp], s_fac[warp], lane);
   const long long in = id * 4LL * d4;
   for (int c = lane; c < d4; c += 32) {
     float w[4], m[4], v[4];
@@ -176,13 +181,18 @@ __global__ void __launch_bounds__(kThreads)
 touched_update_kernel(float* __restrict__ table, MT* __restrict__ mu, NT* __restrict__ nu,
                       int* __restrict__ last_step, const int* __restrict__ uid,
                       const float* __restrict__ w_c, const float* __restrict__ mu_c,
-                      const float* __restrict__ nu_c, const float* __restrict__ summed, int U,
-                      long long rows, int d4, const __grid_constant__ Hyper hp) {
+                      const float* __restrict__ nu_c, const float* __restrict__ summed,
+                      const long long* __restrict__ step, int U, long long rows, int d4,
+                      const __grid_constant__ Hyper hp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long slot = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (slot >= U) return;
   const long long id = uid[slot];
   if (id < 0 || id >= rows) return;  // sentinel slot: dropped
+  const float bc1 = step_block::as_float(step, step_block::kBc1);
+  const float bc2 = step_block::as_float(step, step_block::kBc2);
+  const unsigned long long seed_mu = step_block::as_seed(step, step_block::kSeedMu);
+  const unsigned long long seed_nu = step_block::as_seed(step, step_block::kSeedNu);
   const long long in = slot * 4LL * d4, out = id * 4LL * d4;
   for (int c = lane; c < d4; c += 32) {
     float w[4], m[4], v[4], g[4];
@@ -194,18 +204,18 @@ touched_update_kernel(float* __restrict__ table, MT* __restrict__ mu, NT* __rest
     for (int t = 0; t < 4; ++t) {
       m[t] = __fadd_rn(__fmul_rn(hp.b1, m[t]), __fmul_rn(hp.omb1, g[t]));
       v[t] = __fadd_rn(__fmul_rn(hp.b2, v[t]), __fmul_rn(hp.omb2, __fmul_rn(g[t], g[t])));
-      const float mu_hat = __fdiv_rn(m[t], hp.bc1);
-      const float nu_hat = __fdiv_rn(v[t], hp.bc2);
+      const float mu_hat = __fdiv_rn(m[t], bc1);
+      const float nu_hat = __fdiv_rn(v[t], bc2);
       const float upd = __fadd_rn(__fdiv_rn(mu_hat, __fadd_rn(__fsqrt_rn(nu_hat), hp.eps)),
                                   __fmul_rn(hp.wd, w[t]));
       w[t] = __fsub_rn(w[t], __fmul_rn(hp.lr, upd));
     }
     const unsigned long long idx = static_cast<unsigned long long>(out + 4 * c);
     store4(table + out + 4 * c, w);
-    store4(mu + out + 4 * c, m, hp.sr_mu, hp.seed_mu, idx);
-    store4(nu + out + 4 * c, v, hp.sr_nu, hp.seed_nu, idx);
+    store4(mu + out + 4 * c, m, hp.sr_mu, seed_mu, idx);
+    store4(nu + out + 4 * c, v, hp.sr_nu, seed_nu, idx);
   }
-  if (lane == 0) last_step[id] = hp.count;
+  if (lane == 0) last_step[id] = step_block::count(step);
 }
 
 template <typename MT, typename NT>
@@ -267,21 +277,23 @@ void with_moments(void* mu, void* nu, int mu_bf16, int nu_bf16, Fn fn) {
 // Shapes are checked by the Python wrappers (ops/lazy_adamw.py): table [rows, D]
 // f32 with D % 4 == 0, mu and nu [rows, D] f32 or bf16, last_step [rows] int32,
 // uid [U] int32 unique, w_c / mu_c / nu_c / summed [U, D] f32, all contiguous
-// and 16-byte aligned; 1 <= terms <= 64. Each returns cudaGetLastError().
+// and 16-byte aligned; 1 <= terms <= 64; `step` is the device address of the
+// step's row of the step block (int64 fields, step_block.cuh). Each returns
+// cudaGetLastError().
 extern "C" int lazy_gather_catch_up(const void* table, const void* mu, const void* nu,
                                     const void* last_step, const void* uid, void* w_c, void* mu_c,
-                                    void* nu_c, int U, long long rows, int D, int mu_bf16,
-                                    int nu_bf16, int count, int terms, float lr, float eps,
+                                    void* nu_c, const void* step, int U, long long rows, int D,
+                                    int mu_bf16, int nu_bf16, int terms, float lr, float eps,
                                     float ln_b1, float ln_b2, float a_log, const float* b1_pow,
                                     const float* b2_pow, void* stream) {
-  const Hyper hp = catch_up_hyper(count, terms, lr, eps, ln_b1, ln_b2, a_log, b1_pow, b2_pow);
+  const Hyper hp = catch_up_hyper(0, terms, lr, eps, ln_b1, ln_b2, a_log, b1_pow, b2_pow);
   if (U > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     with_moments(const_cast<void*>(mu), const_cast<void*>(nu), mu_bf16, nu_bf16, [&](auto* m, auto* n) {
       gather_catch_up_kernel<<<grid_for(U), kThreads, 0, s>>>(
           static_cast<const float*>(table), m, n, static_cast<const int*>(last_step),
           static_cast<const int*>(uid), static_cast<float*>(w_c), static_cast<float*>(mu_c),
-          static_cast<float*>(nu_c), U, rows, D / 4, hp);
+          static_cast<float*>(nu_c), static_cast<const long long*>(step), U, rows, D / 4, hp);
     });
   }
   return static_cast<int>(cudaGetLastError());
@@ -289,15 +301,13 @@ extern "C" int lazy_gather_catch_up(const void* table, const void* mu, const voi
 
 extern "C" int lazy_touched_update(void* table, void* mu, void* nu, void* last_step,
                                    const void* uid, const void* w_c, const void* mu_c,
-                                   const void* nu_c, const void* summed, int U, long long rows,
-                                   int D, int mu_bf16, int nu_bf16, int sr_mu, int sr_nu,
-                                   unsigned long long seed_mu, unsigned long long seed_nu,
-                                   int count, float lr, float b1, float b2, float eps, float wd,
-                                   float omb1, float omb2, float bc1, float bc2, void* stream) {
+                                   const void* nu_c, const void* summed, const void* step, int U,
+                                   long long rows, int D, int mu_bf16, int nu_bf16, int sr_mu,
+                                   int sr_nu, float lr, float b1, float b2, float eps, float wd,
+                                   float omb1, float omb2, void* stream) {
   Hyper hp = {};
   hp.lr = lr, hp.eps = eps, hp.wd = wd, hp.b1 = b1, hp.b2 = b2, hp.omb1 = omb1, hp.omb2 = omb2;
-  hp.bc1 = bc1, hp.bc2 = bc2, hp.seed_mu = seed_mu, hp.seed_nu = seed_nu;
-  hp.sr_mu = sr_mu, hp.sr_nu = sr_nu, hp.count = count;
+  hp.sr_mu = sr_mu, hp.sr_nu = sr_nu;
   if (U > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     with_moments(mu, nu, mu_bf16, nu_bf16, [&](auto* m, auto* n) {
@@ -305,7 +315,8 @@ extern "C" int lazy_touched_update(void* table, void* mu, void* nu, void* last_s
           static_cast<float*>(table), m, n, static_cast<int*>(last_step),
           static_cast<const int*>(uid), static_cast<const float*>(w_c),
           static_cast<const float*>(mu_c), static_cast<const float*>(nu_c),
-          static_cast<const float*>(summed), U, rows, D / 4, hp);
+          static_cast<const float*>(summed), static_cast<const long long*>(step), U, rows, D / 4,
+          hp);
     });
   }
   return static_cast<int>(cudaGetLastError());

@@ -14,7 +14,10 @@
 // so a destination with no in-edges outputs exact zeros. keep() is a pure
 // function of (seed, b, h, i, j): bit 8.. of counter_hash(seed, linear index)
 // below (1 - p_drop) * 2^24. No mask tensor is stored; the backward draws the
-// same bits from the same seed.
+// same bits from the same seed. The seed is read from device memory (the
+// layer's field of the step's row of the step block, ops/step_block.py), so
+// that a CUDA graph of the train step replays each step with its own seed; the
+// kernels without dropout never read it.
 //
 // Backward, with dO the gradient of out:
 //     dV_j  = sum_i p_ij dO_i
@@ -199,8 +202,10 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 session_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const uint8_t* __restrict__ adj,
                          float* __restrict__ out, int B, int N, int H, int d, float scale,
-                         float keep_prob, uint32_t keep_threshold, unsigned long long seed) {
+                         float keep_prob, uint32_t keep_threshold,
+                         const unsigned long long* __restrict__ seed_p) {
   extern __shared__ __align__(16) float smem[];
+  const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;
   float* sk = smem;
   float* sv = sk + N * ld;
@@ -329,8 +334,9 @@ session_attention_staged_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v, const uint8_t* __restrict__ adj,
                                 float* __restrict__ out, int B, int N, int H, int d, float scale,
                                 float keep_prob, uint32_t keep_threshold,
-                                unsigned long long seed) {
+                                const unsigned long long* __restrict__ seed_p) {
   extern __shared__ __align__(16) float smem[];
+  const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;          // row stride of the staged tiles
   const int ldp = staged_weights_ld(N);  // row stride of sp, the weights as [source][destination]
   float* sq = smem;  // Q, and after pass 1 V
@@ -509,7 +515,7 @@ size_t staged_smem_bytes(int N, int d) {
 template <bool kDropout, int R>
 int launch_staged(const float* q, const float* k, const float* v, const uint8_t* adj, float* out,
                   int B, int N, int H, int d, float scale, float keep_prob,
-                  uint32_t keep_threshold, unsigned long long seed, cudaStream_t stream) {
+                  uint32_t keep_threshold, const unsigned long long* seed, cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -689,8 +695,10 @@ session_attention_backward_kernel(const float* __restrict__ q, const float* __re
                                   const float* __restrict__ dout, float* __restrict__ dq,
                                   float* __restrict__ dk, float* __restrict__ dv, int B, int N,
                                   int H, int d, float scale, float keep_prob,
-                                  uint32_t keep_threshold, unsigned long long seed) {
+                                  uint32_t keep_threshold,
+                                  const unsigned long long* __restrict__ seed_p) {
   extern __shared__ __align__(16) float smem[];
+  const unsigned long long seed = keep_threshold < kKeepAll ? *seed_p : 0ULL;  // from device memory
   const int ld = d + kTilePad;           // row stride of the staged tiles
   const int ldp = staged_weights_ld(N);  // row stride of the N x N matrices, [destination][source]
   float* ta = smem;  // q, then dO, then q
@@ -867,8 +875,8 @@ size_t backward_smem_bytes(int N, int d) {
 template <int R>
 int launch_backward(const float* q, const float* k, const float* v, const uint8_t* adj,
                     const float* dout, float* dq, float* dk, float* dv, int B, int N, int H, int d,
-                    float scale, float keep_prob, uint32_t keep_threshold, unsigned long long seed,
-                    cudaStream_t stream) {
+                    float scale, float keep_prob, uint32_t keep_threshold,
+                    const unsigned long long* seed, cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -911,8 +919,8 @@ extern "C" int session_attention_forward_variant(const void* q, const void* k, c
                                                  const void* adj, void* out, int B, int N, int H,
                                                  int d, float scale, float keep_prob,
                                                  unsigned int keep_threshold,
-                                                 unsigned long long seed, int staged,
-                                                 void* stream) {
+                                                 const void* seed, int staged, void* stream) {
+  const auto* seedp = static_cast<const unsigned long long*>(seed);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -924,14 +932,15 @@ extern "C" int session_attention_forward_variant(const void* q, const void* k, c
   if (staged) {
     auto* launch = dropout ? (N <= 16 ? launch_staged<true, 2> : launch_staged<true, 4>)
                            : (N <= 16 ? launch_staged<false, 2> : launch_staged<false, 4>);
-    const int err = launch(qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seed, s);
+    const int err =
+        launch(qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp, s);
     if (err != 0) return err;
   } else {
     const int err = opt_in_rows();
     if (err != 0) return err;
     auto* kernel = dropout ? session_attention_kernel<true> : session_attention_kernel<false>;
     kernel<<<(unsigned)((long long)B * H * row_groups(N)), kRowWarps * 32, row_smem_bytes(N, d), s>>>(
-        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seed);
+        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -944,7 +953,7 @@ extern "C" int session_attention_takes_staged(int B, int N, int H) {
 extern "C" int session_attention_forward(const void* q, const void* k, const void* v,
                                          const void* adj, void* out, int B, int N, int H,
                                          int d, float scale, float keep_prob,
-                                         unsigned int keep_threshold, unsigned long long seed,
+                                         unsigned int keep_threshold, const void* seed,
                                          void* stream) {
   return session_attention_forward_variant(q, k, v, adj, out, B, N, H, d, scale, keep_prob,
                                            keep_threshold, seed,
@@ -966,14 +975,15 @@ extern "C" int session_attention_backward(const void* q, const void* k, const vo
                                           const void* adj, const void* dout, void* dq, void* dk,
                                           void* dv, int B, int N, int H, int d, float scale,
                                           float keep_prob, unsigned int keep_threshold,
-                                          unsigned long long seed, void* stream) {
+                                          const void* seed, void* stream) {
   if ((long long)B * H * N == 0) return 0;
   auto* launch = N <= 16 ? launch_backward<2> : launch_backward<4>;
   const int err = launch(static_cast<const float*>(q), static_cast<const float*>(k),
                          static_cast<const float*>(v), static_cast<const uint8_t*>(adj),
                          static_cast<const float*>(dout), static_cast<float*>(dq),
                          static_cast<float*>(dk), static_cast<float*>(dv), B, N, H, d, scale,
-                         keep_prob, keep_threshold, seed, static_cast<cudaStream_t>(stream));
+                         keep_prob, keep_threshold, static_cast<const unsigned long long*>(seed),
+                         static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,12 @@ pass reads, plus the targets, negatives and sample mask when training.
 ``SessionDataset`` pre-indexes the sessions (numpy and the csv module only),
 ``iterate_batches`` yields one epoch of host batches (the numpy engine), and
 ``make_grad_index`` builds the duplicate-row index of the sparse train step on
-the host. ``to_device`` copies a batch and its index to the card from pinned
-memory without blocking. The bit-packed transfer form of the adjacency, the
-stacking of batches into chains and the C++ assembly engine are not ported
-yet (ROADMAP.md, queue A).
+the host. ``chain_iterator`` groups consecutive batches of one node bucket,
+and ``stack_batches`` / ``stack_grad_indices`` stack a group into the [C, ...]
+payload of a chained train or eval step. ``to_device`` copies a batch and its
+index to the card from pinned memory without blocking. The bit-packed
+transfer form of the adjacency and the C++ assembly engine are not ported yet
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -381,6 +383,60 @@ def make_grad_index_from_ids(ids: np.ndarray) -> GradIndex:
     uid[seg] = sid  # ascending uniques (sid is sorted), sentinel tail
     lengths = np.bincount(seg, minlength=U).astype(np.int64)
     return GradIndex(ids=ids, perm=perm, seg=seg, uid=uid, lengths=lengths)
+
+
+def stack_batches(batches: list) -> SessionBatch:
+    """Stack C same-shape host batches into one [C, ...] batch, the payload
+    of a chained train or eval step (one transfer covers C steps)."""
+    names = [f.name for f in dataclasses.fields(SessionBatch)]
+    return SessionBatch(*(
+        None if getattr(batches[0], n) is None else torch.stack([getattr(b, n) for b in batches])
+        for n in names
+    ))
+
+
+def stack_grad_indices(gidxs: list) -> GradIndex:
+    """Stack C GradIndexes to [C, ...], padding every uid to the group's
+    largest unique-count bucket with ``UID_SENTINEL`` and its lengths with 0:
+    the sorted segment sum gives zero rows there, and the sparse update drops
+    sentinel slots."""
+    U = max(g.uid.shape[0] for g in gidxs)
+
+    def pad(a: np.ndarray, fill) -> np.ndarray:
+        out = np.full(U, fill, a.dtype)
+        out[: len(a)] = a
+        return out
+
+    return GradIndex(
+        ids=np.stack([g.ids for g in gidxs]),
+        perm=np.stack([g.perm for g in gidxs]),
+        seg=np.stack([g.seg for g in gidxs]),
+        uid=np.stack([pad(g.uid, UID_SENTINEL) for g in gidxs]),
+        lengths=np.stack([pad(g.lengths, 0) for g in gidxs]),
+    )
+
+
+def chain_iterator(iterator, chain: int):
+    """Group consecutive epoch items into runs of `chain` with equal node
+    bucket (``iterate_batches`` yields buckets in ascending order, so runs are
+    long). Yields lists of items; a partial run at a bucket boundary or at
+    the epoch's end is yielded as it is (the Trainer splits it into shorter
+    chains and single steps)."""
+    pending: list = []
+    pending_n = None
+    for item in iterator:
+        batch = item[0] if isinstance(item, tuple) else item
+        n = batch.nodes_per_session
+        if pending and n != pending_n:
+            yield pending
+            pending = []
+        pending.append(item)
+        pending_n = n
+        if len(pending) == chain:
+            yield pending
+            pending = []
+    if pending:
+        yield pending
 
 
 def to_device(item, device):

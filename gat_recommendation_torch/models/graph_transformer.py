@@ -4,7 +4,9 @@ item emb (+ projected LapPE) -> num_layers x (TransformerConv(beta gate) ->
 masked BatchNorm -> additive residual -> dropout) -> session readout. In train
 mode (``model.train()``) the BatchNorm layers use batch statistics and update
 their running buffers in place, and both dropouts are active, keyed by the
-`seed` the caller passes. The FFN branch is not ported yet.
+`seed` the caller passes: an int, or a step's row of the step block
+(``ops/step_block.py``) that holds every layer's two seeds on the device.
+The FFN branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from gat_recommendation_torch.data.batching import SessionBatch
 from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.models import base
 from gat_recommendation_torch.models.layers import TransformerConv
-from gat_recommendation_torch.ops.masked import dropout, masked_batch_norm
-from gat_recommendation_torch.ops.rounding import mix_seed
+from gat_recommendation_torch.ops import step_block
+from gat_recommendation_torch.ops.masked import masked_batch_norm
+from gat_recommendation_torch.ops.node_dropout import node_dropout
 
 
 @dataclass(frozen=True)
@@ -94,7 +97,6 @@ class GraphTransformer(nn.Module):
         device = resolve_device(device)
         self.name = name
         self.config = cfg
-        self._dropout_generator: torch.Generator | None = None
         rows = base.padded_rows(cfg.num_items)
         self.item_embedding = nn.Parameter(torch.empty(rows, cfg.embedding_dim, device=device))
         self.readout = (
@@ -132,16 +134,17 @@ class GraphTransformer(nn.Module):
         self,
         batch: SessionBatch,
         node_embeddings: torch.Tensor | None = None,
-        seed: int | None = None,
+        seed: int | torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Session embeddings [B, hidden_dim]; train or eval by ``self.training``.
 
         `node_embeddings` ([B, N, D]) replaces the table lookup of
         ``batch.node_ids``: the sparse train step gathers every row it touches
         once and differentiates with respect to the rows. `seed` keys the
-        train-mode randomness (0 when omitted): each layer derives from it the
-        seed of its attention dropout and the seed of the generator that
-        draws its node dropout.
+        train-mode randomness (0 when omitted): an int step seed, from which
+        each layer derives on the host the seeds of its attention dropout and
+        of its node dropout (``mix_seed(seed, layer, 0 / 1)``), or a step's
+        row of the step block holding those seeds on the device.
         """
         rate = self.config.dropout if self.training else 0.0
         seed = 0 if seed is None else seed
@@ -150,19 +153,13 @@ class GraphTransformer(nn.Module):
             x = x + self.lap_projection(self.cached_pe[batch.node_ids])
         for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             residual = x
-            x = conv(x, batch.adj, rate, mix_seed(seed, layer, 0) if rate > 0.0 else None)
+            attention_seed, node_seed = step_block.layer_seeds(seed, layer)
+            x = conv(x, batch.adj, rate, attention_seed if rate > 0.0 else None)
             x = bn(x, batch.node_mask) + residual
-            if rate > 0.0:
-                x = dropout(x, rate, True, self._node_dropout_generator(x.device, seed, layer))
+            x = node_dropout(x, rate, node_seed)
         return base.apply_readout(
             self.readout, x, batch.node_mask, batch.num_nodes, self.config.readout_type
         )
-
-    def _node_dropout_generator(self, device, seed: int, layer: int) -> torch.Generator:
-        gen = self._dropout_generator
-        if gen is None or gen.device != device:
-            gen = self._dropout_generator = torch.Generator(device)
-        return gen.manual_seed(mix_seed(seed, layer, 1) & (2**63 - 1))
 
 
 def create_graph_transformer(num_items: int, *, device=None, generator=None, **kwargs):

@@ -36,10 +36,15 @@ class TransformerConv(nn.Module):
             init_torch_linear(layer, generator)
 
     def forward(
-        self, x: torch.Tensor, adj: torch.Tensor, dropout_p: float = 0.0, seed: int | None = None
+        self,
+        x: torch.Tensor,
+        adj: torch.Tensor,
+        dropout_p: float = 0.0,
+        seed: int | torch.Tensor | None = None,
     ) -> torch.Tensor:
         """x: [B, N, in]; adj: [B, N, N] bool. Returns [B, N, heads*head_dim].
-        `dropout_p` > 0 drops attention weights, keyed by the 64-bit `seed`."""
+        `dropout_p` > 0 drops attention weights, keyed by the 64-bit `seed`
+        (an int, or a 0-dim int64 tensor on x's device holding its bits)."""
         out = session_attention(
             self.query(x), self.key(x), self.value(x), adj, self.heads, dropout_p, seed
         )

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("session_attention", "score_chunkmax", "embedding_adamw", "lazy_adamw")
+KERNELS = ("session_attention", "score_chunkmax", "embedding_adamw", "lazy_adamw", "node_dropout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

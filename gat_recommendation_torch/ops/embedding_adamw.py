@@ -15,47 +15,27 @@ fused_embedding_adamw``) or raises; on CPU tensors it runs the plain version
 ``embedding_adamw_reference``. Both update ``w``, ``mu`` and ``nu`` IN PLACE
 (the Pallas kernel returns fresh arrays) and return them.
 
-The bias corrections are computed on the host in float32, as the JAX package
-computes them: near count = 1..10, ``1 - 0.999^count`` loses five digits in
-float32, so a double-precision value would differ from the JAX package's by
-about 2e-5 relative. ``count`` is a Python int; nothing is read back from
-the device.
+``count`` is a Python int or the step's row of the step block
+(``ops/step_block.py``, which computes the bias corrections and the rounding
+seeds on the host): the kernel reads them from that row, which the wrapper
+builds from an int. Nothing is read back from the device.
 
 The pieces shared with the sparse and the lazy updates (``ops/sparse_adamw.py``,
-``ops/lazy_adamw.py``) live here: the bias corrections, the tail, the moment
-store and the kernels' argument checks.
+``ops/lazy_adamw.py``) live here: the tail, the moment store and the kernels'
+argument checks.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from gat_recommendation_torch.ops import _build
-from gat_recommendation_torch.ops.rounding import counter_hash, mix_seed, stochastic_round_bf16
+from gat_recommendation_torch.ops import _build, step_block
+from gat_recommendation_torch.ops.rounding import counter_hash, stochastic_round_bf16
+from gat_recommendation_torch.ops.step_block import bias_corrections, bias_denominators, moment_seed
 
 MOMENT_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def bias_denominators(count: int, b1: float, b2: float) -> tuple[float, float]:
-    """``(1-b1^count, 1-b2^count)`` in float32 arithmetic."""
-    if count < 1:
-        raise ValueError(f"count is the step number after the update (>= 1), got {count}")
-    one, c = np.float32(1.0), np.float32(count)
-    return float(one - np.float32(b1) ** c), float(one - np.float32(b2) ** c)
-
-
-def bias_corrections(count: int, b1: float, b2: float) -> tuple[float, float]:
-    """``(1/(1-b1^count), 1/(1-b2^count))`` in float32 arithmetic."""
-    one = np.float32(1.0)
-    return tuple(float(one / np.float32(d)) for d in bias_denominators(count, b1, b2))
-
-
-def moment_seed(count: int, buffer: int) -> int:
-    """The stochastic-rounding seed of one moment buffer (0 = mu, 1 = nu) at one step."""
-    return mix_seed(0x5352, count, buffer)
 
 
 def stochastic_flags(mu: torch.Tensor, nu: torch.Tensor, stochastic_rounding: bool) -> tuple[bool, bool]:
@@ -136,21 +116,15 @@ def check_table_args(name: str, w, mu, nu) -> None:
         raise ValueError(f"{name}: table of {tuple(w.shape)} exceeds the kernel's grid")
 
 
-_F, _I, _LL, _ULL, _P = (
-    ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p,
-)
+_F, _I, _LL, _P = ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def adamw_lib() -> ctypes.CDLL:
     """The library of csrc/embedding_adamw.cu with both entry points typed."""
     lib = _build.load("embedding_adamw")
-    lib.sparse_adamw.argtypes = (
-        [_P] * 5 + [_I, _LL, _I, _LL] + [_I] * 4 + [_ULL] * 2 + [_F] * 9 + [_P]
-    )
+    lib.sparse_adamw.argtypes = [_P] * 6 + [_I, _LL, _I, _LL] + [_I] * 4 + [_F] * 7 + [_P]
     lib.sparse_adamw.restype = _I
-    lib.embedding_adamw.argtypes = (
-        [_P] * 4 + [_LL, _I, _LL] + [_I] * 4 + [_ULL] * 2 + [_F] * 9 + [_P]
-    )
+    lib.embedding_adamw.argtypes = [_P] * 5 + [_LL, _I, _LL] + [_I] * 4 + [_F] * 7 + [_P]
     lib.embedding_adamw.restype = _I
     return lib
 
@@ -160,7 +134,7 @@ def embedding_adamw(
     mu: torch.Tensor,
     nu: torch.Tensor,
     grad: torch.Tensor,
-    count: int,
+    count: int | torch.Tensor,
     *,
     lr: float,
     b1: float = 0.9,
@@ -173,13 +147,14 @@ def embedding_adamw(
     """Dense AdamW over the [V, D] table in one pass; w, mu, nu updated in place.
 
     w, grad: float32 [V, D]; mu, nu: float32 or bfloat16 [V, D]; `count`: the
-    step number after this update. `row_offset`: the first global row of `w`
-    when it is a row shard (it only keys the stochastic-rounding bits).
+    step number after this update, an int or the step's row of the step block
+    on the table's device. `row_offset`: the first global row of `w` when it is
+    a row shard (it only keys the stochastic-rounding bits).
     """
     if w.device.type == "cpu":
         return embedding_adamw_reference(
-            w, mu, nu, grad, count, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-            row_offset=row_offset, stochastic_rounding=stochastic_rounding,
+            w, mu, nu, grad, step_block.count_of(count), lr=lr, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay, row_offset=row_offset, stochastic_rounding=stochastic_rounding,
         )
     if w.device.type != "cuda":
         raise ValueError(f"embedding_adamw runs on cuda or cpu tensors, got {w.device}")
@@ -189,14 +164,13 @@ def embedding_adamw(
     if not grad.is_contiguous() or grad.data_ptr() % 16:
         raise ValueError("embedding_adamw: grad must be contiguous and 16-byte aligned")
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
-    ibc1, ibc2 = bias_corrections(count, b1, b2)
+    row = step_block.row_on(count, b1=b1, b2=b2, device=w.device)
     with torch.cuda.device(w.device):
         err = adamw_lib().embedding_adamw(
-            w.data_ptr(), mu.data_ptr(), nu.data_ptr(), grad.data_ptr(),
+            w.data_ptr(), mu.data_ptr(), nu.data_ptr(), grad.data_ptr(), row.data_ptr(),
             w.shape[0], w.shape[1], row_offset,
             mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, sr_mu, sr_nu,
-            moment_seed(count, 0), moment_seed(count, 1),
-            lr, b1, b2, eps, weight_decay, 1.0 - b1, 1.0 - b2, ibc1, ibc2,
+            lr, b1, b2, eps, weight_decay, 1.0 - b1, 1.0 - b2,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "embedding_adamw")

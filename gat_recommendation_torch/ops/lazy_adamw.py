@@ -34,6 +34,11 @@ tensors and run the plain versions on CPU tensors; there is no other switch:
 - ``materialize`` -> ``lazy_materialize``: every row caught up to ``count``,
   in place, ``last_step = count``.
 
+The first two run inside the chained train step's CUDA graphs, so their
+``count`` is the step's row of the step block (``ops/step_block.py``): the
+kernels read the count, the bias denominators and the rounding seeds from
+device memory. Given a Python int they build that row themselves.
+
 Moments are float32 or bfloat16 (stochastic rounding keyed by ``(count,
 buffer)`` and the counter ``row * D + column``, as ``ops/embedding_adamw.py``
 stores them). Scalars that divide are tensors on the data's device, so a
@@ -49,7 +54,7 @@ import math
 import numpy as np
 import torch
 
-from gat_recommendation_torch.ops import _build
+from gat_recommendation_torch.ops import _build, step_block
 from gat_recommendation_torch.ops.embedding_adamw import (
     bias_denominators,
     check_table_args,
@@ -208,10 +213,8 @@ _F, _I, _LL, _ULL, _P = (
 def lazy_lib() -> ctypes.CDLL:
     """The library of csrc/lazy_adamw.cu with its three entry points typed."""
     lib = _build.load("lazy_adamw")
-    lib.lazy_gather_catch_up.argtypes = [_P] * 8 + [_I, _LL] + [_I] * 5 + [_F] * 5 + [_P] * 3
-    lib.lazy_touched_update.argtypes = (
-        [_P] * 9 + [_I, _LL] + [_I] * 5 + [_ULL] * 2 + [_I] + [_F] * 9 + [_P]
-    )
+    lib.lazy_gather_catch_up.argtypes = [_P] * 9 + [_I, _LL] + [_I] * 4 + [_F] * 5 + [_P] * 3
+    lib.lazy_touched_update.argtypes = [_P] * 10 + [_I, _LL] + [_I] * 5 + [_F] * 7 + [_P]
     lib.lazy_materialize.argtypes = (
         [_P] * 4 + [_LL] + [_I] * 5 + [_ULL] * 2 + [_I] * 2 + [_F] * 5 + [_P] * 3
     )
@@ -265,11 +268,12 @@ def _device(name: str, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def gather_catch_up(table, mu, nu, last_step, uid, count: int, *, lr, b1=0.9, b2=0.999, eps=1e-8,
-                    weight_decay=0.0, tail_terms=TAIL_TERMS):
+def gather_catch_up(table, mu, nu, last_step, uid, count: int | torch.Tensor, *, lr, b1=0.9,
+                    b2=0.999, eps=1e-8, weight_decay=0.0, tail_terms=TAIL_TERMS):
     """The uid rows caught up to step ``count - 1`` (``count``: the step number
-    after this update): float32 (w_c, mu_c, nu_c), each [U, D], zeros for
-    slots outside the table.
+    after this update, an int or the step's row of the step block on the
+    table's device): float32 (w_c, mu_c, nu_c), each [U, D], zeros for slots
+    outside the table.
 
     table: float32 [rows, D]; mu, nu: float32 or bfloat16 [rows, D];
     last_step: int32 [rows]; uid: int32 [U] unique row ids, sentinel-padded.
@@ -277,16 +281,17 @@ def gather_catch_up(table, mu, nu, last_step, uid, count: int, *, lr, b1=0.9, b2
     _check_terms("gather_catch_up", tail_terms)
     hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, tail_terms=tail_terms)
     if not _device("gather_catch_up", table):
-        return gather_catch_up_reference(table, mu, nu, last_step, uid, count, **hp)
+        return gather_catch_up_reference(table, mu, nu, last_step, uid, step_block.count_of(count), **hp)
     _check_table("gather_catch_up", table, mu, nu, last_step)
     _check_rows("gather_catch_up", table, uid)
+    row = step_block.row_on(count, b1=b1, b2=b2, device=table.device)
     out = [torch.empty(uid.shape[0], table.shape[1], device=table.device) for _ in range(3)]
     (ln_b1, ln_b2, a_log), (p1, p2) = _series_args(lr, b1, b2, weight_decay, tail_terms)
     with torch.cuda.device(table.device):
         err = lazy_lib().lazy_gather_catch_up(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), last_step.data_ptr(), uid.data_ptr(),
-            *(t.data_ptr() for t in out), uid.shape[0], table.shape[0], table.shape[1],
-            mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, count, tail_terms,
+            *(t.data_ptr() for t in out), row.data_ptr(), uid.shape[0], table.shape[0],
+            table.shape[1], mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, tail_terms,
             lr, eps, ln_b1, ln_b2, a_log, p1.ctypes.data, p2.ctypes.data,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -295,30 +300,30 @@ def gather_catch_up(table, mu, nu, last_step, uid, count: int, *, lr, b1=0.9, b2
     return tuple(out)
 
 
-def touched_update_scatter(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed, count: int, *,
-                           lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
-                           stochastic_rounding=False):
-    """AdamW at step `count` on the caught-up rows (w_c, mu_c, nu_c from
-    ``gather_catch_up`` on the same uid) with their summed gradient [U, D],
-    scattered into the uid rows of table, mu and nu, and ``last_step[uid] =
-    count``; sentinel slots are dropped. In place; returns the four."""
+def touched_update_scatter(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed,
+                           count: int | torch.Tensor, *, lr, b1=0.9, b2=0.999, eps=1e-8,
+                           weight_decay=0.0, stochastic_rounding=False):
+    """AdamW at step `count` (an int or the step's row of the step block) on
+    the caught-up rows (w_c, mu_c, nu_c from ``gather_catch_up`` on the same
+    uid) with their summed gradient [U, D], scattered into the uid rows of
+    table, mu and nu, and ``last_step[uid] = count``; sentinel slots are
+    dropped. In place; returns the four."""
     hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if not _device("touched_update_scatter", table):
         return touched_update_scatter_reference(
-            table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed, count,
+            table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed, step_block.count_of(count),
             stochastic_rounding=stochastic_rounding, **hp)
     _check_table("touched_update_scatter", table, mu, nu, last_step)
     _check_rows("touched_update_scatter", table, uid, w_c=w_c, mu_c=mu_c, nu_c=nu_c, summed=summed)
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
-    bc1, bc2 = bias_denominators(count, b1, b2)
+    row = step_block.row_on(count, b1=b1, b2=b2, device=table.device)
     with torch.cuda.device(table.device):
         err = lazy_lib().lazy_touched_update(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), last_step.data_ptr(), uid.data_ptr(),
-            w_c.data_ptr(), mu_c.data_ptr(), nu_c.data_ptr(), summed.data_ptr(),
+            w_c.data_ptr(), mu_c.data_ptr(), nu_c.data_ptr(), summed.data_ptr(), row.data_ptr(),
             uid.shape[0], table.shape[0], table.shape[1],
             mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, sr_mu, sr_nu,
-            moment_seed(count, 0), moment_seed(count, 1), count,
-            lr, b1, b2, eps, weight_decay, 1.0 - b1, 1.0 - b2, bc1, bc2,
+            lr, b1, b2, eps, weight_decay, 1.0 - b1, 1.0 - b2,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "lazy_touched_update")

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from gat_recommendation_torch.ops.rounding import keep_mask, keep_scale
+
 _NEG_INF = -1e30
 
 
@@ -79,11 +81,15 @@ def masked_batch_norm(
     return (x - mean) * inv * scale + bias
 
 
-def dropout(
-    x: torch.Tensor, rate: float, train: bool, generator: torch.Generator | None = None
-) -> torch.Tensor:
-    """Inverted dropout (scale kept entries by 1/(1-rate) at train time)."""
+def dropout(x: torch.Tensor, rate: float, train: bool, seed: int | torch.Tensor = 0) -> torch.Tensor:
+    """Inverted dropout (kept entries scaled by ``keep_scale(rate)``, 1/(1-rate)
+    in float32, at train time).
+
+    The keep mask is a pure function of `seed` and each element's linear
+    index (``rounding.keep_mask``, the counter hash of the attention
+    dropout). `seed` is an int or a 0-dim int64 tensor holding its bits. The
+    plain version of ``ops/node_dropout.py``'s kernel, which the model calls."""
     if not train or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    keep = keep_mask(x.shape, rate, seed, x.device)
+    return torch.where(keep, x * keep_scale(rate), torch.zeros_like(x))

@@ -22,17 +22,24 @@ is a two-round multiply-xorshift integer hash; both multipliers are below
 2^31, so the products of 32-bit values fit a signed 64-bit integer and the
 plain version needs no wrapping arithmetic. ``csrc/counter_hash.cuh`` is the
 same function in CUDA. Seeds are 64-bit values from ``mix_seed`` (SplitMix64
-on the host), so consecutive steps do not get neighbouring seeds. The JAX
-package draws its bits from ``jax.random``, so the two packages agree in
+on the host), so consecutive steps do not get neighbouring seeds. Dropout
+(attention weights in ``csrc/session_attention.cu``, nodes in
+``csrc/node_dropout.cu``) keeps an element when the top 24 of its 32 bits lie
+below ``keep_threshold`` and scales it by ``keep_scale``. The JAX package
+draws its bits from ``jax.random``, so the two packages agree in
 distribution only.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
 _M64 = 0xFFFFFFFFFFFFFFFF
+_KEEP_ALL = 1 << 24
 
 
 def mix_seed(*values: int) -> int:
@@ -61,12 +68,41 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 15)
 
 
-def counter_hash(seed: int, idx: torch.Tensor) -> torch.Tensor:
-    """32 random bits per counter value. `seed`: a 64-bit int; `idx`: int64
-    tensor of non-negative counters. Returns int64 values in [0, 2^32)."""
-    seed &= _M64
-    inner = _mix32((idx & _M32) ^ (seed & _M32))
-    return _mix32(inner ^ (seed >> 32) ^ (idx >> 32))
+def counter_hash(seed: int | torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """32 random bits per counter value. `seed`: a 64-bit int, or a 0-dim
+    int64 tensor holding its bits (a field of the step block read on the
+    device, so nothing waits for the host); `idx`: int64 tensor of
+    non-negative counters. Returns int64 values in [0, 2^32)."""
+    if isinstance(seed, torch.Tensor):
+        lo, hi = seed & _M32, (seed >> 32) & _M32  # the halves of the 64-bit pattern
+    else:
+        seed &= _M64
+        lo, hi = seed & _M32, seed >> 32
+    inner = _mix32((idx & _M32) ^ lo)
+    return _mix32(inner ^ hi ^ (idx >> 32))
+
+
+def keep_threshold(rate: float) -> int:
+    """The 24-bit integer below which ``counter_hash(...) >> 8`` keeps an
+    element under dropout at `rate`."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {rate}")
+    return _KEEP_ALL if rate == 0.0 else round((1.0 - rate) * _KEEP_ALL)
+
+
+def keep_scale(rate: float) -> float:
+    """The scale of a kept element under dropout at `rate`: 1 / (1 - rate)
+    rounded to float32, so that a float32 product with it is the same in the
+    plain version and in a kernel."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def keep_mask(shape, rate: float, seed: int | torch.Tensor, device) -> torch.Tensor:
+    """The bool keep mask of dropout at `rate` over `shape`: element i is kept
+    when ``counter_hash(seed, i) >> 8`` (i its linear index) lies below
+    ``keep_threshold(rate)``."""
+    idx = torch.arange(math.prod(shape), device=device).view(shape)
+    return (counter_hash(seed, idx) >> 8) < keep_threshold(rate)
 
 
 def stochastic_round_bf16(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,11 @@ forward's grid; both exist for measuring only.
 The dropout keep bit of weight ``(b, h, i, j)`` is a pure function of
 ``(seed, b, h, i, j)``: ``counter_hash(seed, linear index) >> 8`` below
 ``(1-p)·2^24`` (``ops/rounding.py``). No mask tensor is stored; the kernels
-and the plain version draw the same bits from the same seed.
+and the plain version draw the same bits from the same seed. The kernels read
+the seed from device memory: a 0-dim int64 tensor on the card (a layer's
+field of the step block, ``ops/step_block.py``, so that a CUDA graph of the
+train step replays every step with its own seed), or, for a Python int, a
+one-element tensor the wrapper copies there.
 """
 
 from __future__ import annotations
@@ -42,26 +46,13 @@ import math
 
 import torch
 
-from gat_recommendation_torch.ops import _build
+from gat_recommendation_torch.ops import _build, step_block
 from gat_recommendation_torch.ops.masked import masked_softmax
-from gat_recommendation_torch.ops.rounding import counter_hash
+from gat_recommendation_torch.ops.rounding import keep_mask as dropout_keep_mask
+from gat_recommendation_torch.ops.rounding import keep_threshold
 
 MAX_NODES = 64  # two sources per lane of one warp
 MAX_HEAD_DIM = 128  # one float4 of output columns per lane
-_KEEP_ALL = 1 << 24
-
-
-def keep_threshold(dropout_p: float) -> int:
-    """The 24-bit integer below which a weight's random value keeps it."""
-    if not 0.0 <= dropout_p < 1.0:
-        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
-    return _KEEP_ALL if dropout_p == 0.0 else round((1.0 - dropout_p) * _KEEP_ALL)
-
-
-def dropout_keep_mask(shape: tuple[int, int, int, int], dropout_p: float, seed: int, device) -> torch.Tensor:
-    """The [B, H, N, N] bool keep mask that the kernels regenerate from `seed`."""
-    idx = torch.arange(math.prod(shape), device=device).view(shape)
-    return (counter_hash(seed, idx) >> 8) < keep_threshold(dropout_p)
 
 
 def session_attention_reference(
@@ -71,10 +62,11 @@ def session_attention_reference(
     adj: torch.Tensor,
     heads: int,
     dropout_p: float = 0.0,
-    seed: int | None = None,
+    seed: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version. q/k/v: [B, N, heads*d]; adj: [B, N, N] bool.
-    With ``dropout_p > 0`` the keep mask comes from `seed`."""
+    With ``dropout_p > 0`` the keep mask comes from `seed` (an int, or a
+    0-dim int64 tensor holding its bits)."""
     B, N, HD = q.shape
     d = HD // heads
     qr, kr, vr = (t.reshape(B, N, heads, d) for t in (q, k, v))
@@ -91,7 +83,7 @@ def session_attention_reference(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("session_attention")
     tail = [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.session_attention_forward.argtypes = [ctypes.c_void_p] * 5 + tail
     lib.session_attention_forward.restype = ctypes.c_int
@@ -112,14 +104,16 @@ class _SessionAttention(torch.autograd.Function):
     """Forward and backward kernels of csrc/session_attention.cu."""
 
     @staticmethod
-    def forward(ctx, q, k, v, adj, heads: int, dropout_p: float, seed: int, variant: str | None):
+    def forward(ctx, q, k, v, adj, heads: int, dropout_p: float, seed: torch.Tensor | None,
+                variant: str | None):
         B, N, HD = q.shape
         d = HD // heads
         out = torch.empty_like(q)
         lib = _lib()
         args = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(),
-            B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p), seed,
+            B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p),
+            None if seed is None else seed.data_ptr(),
         )
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -151,7 +145,7 @@ def session_attention_backward(
     grad_out: torch.Tensor,
     heads: int,
     dropout_p: float = 0.0,
-    seed: int = 0,
+    seed: int | torch.Tensor | None = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``session_attention`` for the output gradient `grad_out`.
 
@@ -169,13 +163,14 @@ def session_attention_backward(
     grad_out = grad_out.contiguous()
     if grad_out.shape != q.shape or grad_out.dtype != torch.float32 or grad_out.data_ptr() % 16:
         raise ValueError(f"grad_out: expected float32 {tuple(q.shape)}, 16-byte aligned")
+    seed = _seed_on(q.device, dropout_p, seed)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _lib().session_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), grad_out.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p), seed,
-            torch.cuda.current_stream().cuda_stream,
+            B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p),
+            None if seed is None else seed.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "session_attention_backward")
     session_attention.backward_launches += 1
@@ -189,18 +184,22 @@ def session_attention(
     adj: torch.Tensor,
     heads: int,
     dropout_p: float = 0.0,
-    seed: int | None = None,
+    seed: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked multi-head attention; destinations with no in-edges output zeros.
 
     q/k/v: [B, N, heads*d] float32; adj: [B, N, N] bool or uint8
     (adj[b, dst, src]). `dropout_p` > 0 applies attention dropout keyed by
-    the 64-bit `seed`; 0 is the eval path. Returns [B, N, heads*d] float32,
+    the 64-bit `seed`, an int or a 0-dim int64 tensor on q's device holding
+    its bits; 0 is the eval path. Returns [B, N, heads*d] float32,
     differentiable with respect to q, k and v.
     """
     if dropout_p > 0.0 and seed is None:
         raise ValueError("attention dropout needs a seed")
-    seed = 0 if seed is None else seed & 0xFFFFFFFFFFFFFFFF
+    if seed is None:
+        seed = 0
+    elif not isinstance(seed, torch.Tensor):
+        seed &= 0xFFFFFFFFFFFFFFFF
     if q.device.type == "cpu":
         return session_attention_reference(q, k, v, adj, heads, dropout_p, seed)
     return _launch(q, k, v, adj, heads, dropout_p, seed, None)
@@ -222,7 +221,7 @@ def session_attention_variant(
     between the two; the port itself calls ``session_attention``."""
     if variant not in ("warp", "staged"):
         raise ValueError(f"variant must be 'warp' or 'staged', got {variant!r}")
-    return _launch(q, k, v, adj, heads, dropout_p, seed & 0xFFFFFFFFFFFFFFFF, variant)
+    return _launch(q, k, v, adj, heads, dropout_p, seed, variant)
 
 
 def session_attention_launch_floor(B: int, N: int, heads: int, head_dim: int) -> None:
@@ -254,7 +253,14 @@ def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None):
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"N={N} nodes; the kernel takes 1..{MAX_NODES}")
     keep_threshold(dropout_p)  # validates the rate before anything launches
-    return _SessionAttention.apply(q, k, v, adj, heads, dropout_p, seed, variant)
+    return _SessionAttention.apply(q, k, v, adj, heads, dropout_p, _seed_on(q.device, dropout_p, seed),
+                                   variant)
+
+
+def _seed_on(device, dropout_p: float, seed) -> torch.Tensor | None:
+    """The seed where the kernels read it: None without dropout, a 0-dim
+    int64 tensor on `device` with dropout (``step_block.seed_on``)."""
+    return None if dropout_p == 0.0 else step_block.seed_on(seed, device)
 
 
 session_attention.launches = 0

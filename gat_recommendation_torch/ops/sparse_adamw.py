@@ -24,14 +24,18 @@ and return them. Each row finds its slot by a binary search of ``uid`` inside
 the kernel; nothing is searched outside it. Unlike the Pallas kernel, which
 holds the summed rows in on-chip memory, the port's takes any number of uid
 slots and any row count. Moment storage, bias corrections and ``count`` are
-as in ``ops/embedding_adamw.py``.
+as in ``ops/embedding_adamw.py``. The kernel runs inside the chained train
+step's CUDA graphs, so ``count`` may be the step's row of the step block
+(``ops/step_block.py``): the kernel reads the bias corrections and the
+rounding seeds from device memory. Given a Python int the wrapper builds that
+row itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gat_recommendation_torch.ops import _build
+from gat_recommendation_torch.ops import _build, step_block
 from gat_recommendation_torch.ops.embedding_adamw import (
     adamw_lib,
     adamw_tail,
@@ -85,7 +89,7 @@ def sparse_adamw(
     nu: torch.Tensor,
     uid: torch.Tensor,
     summed: torch.Tensor,
-    count: int,
+    count: int | torch.Tensor,
     *,
     lr: float,
     b1: float = 0.9,
@@ -99,11 +103,12 @@ def sparse_adamw(
 
     table: float32 [rows, D]; mu, nu: float32 or bfloat16 [rows, D]; uid:
     int32 [U] ascending unique global ids, sentinel-padded; summed: float32
-    [U, D]; `count`: the step number after this update.
+    [U, D]; `count`: the step number after this update, an int or the step's
+    row of the step block on the table's device.
     """
     if table.device.type == "cpu":
         return sparse_adamw_reference(
-            table, mu, nu, uid, summed, count, lr=lr, b1=b1, b2=b2, eps=eps,
+            table, mu, nu, uid, summed, step_block.count_of(count), lr=lr, b1=b1, b2=b2, eps=eps,
             weight_decay=weight_decay, row_offset=row_offset,
             stochastic_rounding=stochastic_rounding,
         )
@@ -119,14 +124,13 @@ def sparse_adamw(
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"sparse_adamw: {label} must be contiguous and 16-byte aligned")
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
-    ibc1, ibc2 = bias_corrections(count, b1, b2)
+    row = step_block.row_on(count, b1=b1, b2=b2, device=table.device)
     with torch.cuda.device(table.device):
         err = adamw_lib().sparse_adamw(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), uid.data_ptr(), summed.data_ptr(),
-            uid.shape[0], table.shape[0], table.shape[1], row_offset,
+            row.data_ptr(), uid.shape[0], table.shape[0], table.shape[1], row_offset,
             mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, sr_mu, sr_nu,
-            moment_seed(count, 0), moment_seed(count, 1),
-            lr, b1, b2, eps, weight_decay, (1.0 - b1) / b1, (1.0 - b2) / b2, ibc1, ibc2,
+            lr, b1, b2, eps, weight_decay, (1.0 - b1) / b1, (1.0 - b2) / b2,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "sparse_adamw")

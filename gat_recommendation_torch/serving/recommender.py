@@ -150,5 +150,7 @@ class Recommender:
             "embedding_dim": self.embedding_dim,
             "checkpoint_epoch": self.checkpoint_epoch,
             "val_recall_at_10": self.val_recall_at_10,
+            # No int8 candidate scorer yet (ROADMAP A7): every score is float32.
+            "int8_scoring": False,
             "device": str(self.device),
         }

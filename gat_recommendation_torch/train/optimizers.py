@@ -22,6 +22,17 @@ int: nothing is read back from the device per step), ``rest`` (the
 update launches the kernel, on CPU tensors it runs the plain version; there
 is no switch. ``export_state`` and ``load_state`` carry the state as a flat
 dict of tensors (the checkpoint's optimizer file).
+
+The table updates take the step's row of the step block
+(``ops/step_block.py``) beside the host count, so that a CUDA graph of the
+train step replays every step with its own count; the host count still
+advances, by one a step. On the card ``torch.optim.AdamW`` runs with
+``capturable=True`` for every step, chained or not: its step counter and bias
+corrections live on the device, and the two paths stay bit-equal (the
+capturable form rounds its bias corrections differently from the host form,
+which the CPU keeps). Its state exists from ``init`` on, zeros at step 0 as
+its first ``step()`` would make them, and ``load_state`` fills it in place:
+a captured graph holds its addresses.
 """
 
 from __future__ import annotations
@@ -99,14 +110,22 @@ class FusedEmbeddingAdamW:
         """Fresh state for `model`: zero moments on the table's device."""
         table = model.get_parameter(EMBEDDING_KEY)
         rest = list(rest_parameters(model).values())
+        capturable = table.device.type == "cuda"
+        rest_opt = torch.optim.AdamW(
+            rest, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
+            weight_decay=self.weight_decay, capturable=capturable,
+        )
+        for p in rest:
+            rest_opt.state[p] = {
+                "step": torch.zeros((), device=p.device if capturable else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
         state = {
             "emb_mu": torch.zeros_like(table, dtype=self.mu_dtype or table.dtype),
             "emb_nu": torch.zeros_like(table, dtype=self.nu_dtype or table.dtype),
             "count": 0,
-            "rest": torch.optim.AdamW(
-                rest, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
-                weight_decay=self.weight_decay,
-            ),
+            "rest": rest_opt,
         }
         if self.lazy:
             # Rows start "touched at step 0": zero moments, nothing pending.
@@ -128,15 +147,17 @@ class FusedEmbeddingAdamW:
         )
 
     @torch.no_grad()
-    def update_full(self, grads: dict, state: dict, model: nn.Module) -> dict:
+    def update_full(self, grads: dict, state: dict, model: nn.Module,
+                    step: torch.Tensor | None = None) -> dict:
         """Apply one step from dense gradients (`grads`: parameter name ->
-        gradient, the table's under ``item_embedding``). Returns `state`."""
+        gradient, the table's under ``item_embedding``). `step`: this step's
+        row of the step block (None: built from the count). Returns `state`."""
         if self.lazy:
             raise ValueError("the lazy optimizer takes sparse steps only (update_sparse_lazy)")
         state["count"] += 1
         embedding_adamw(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
-            grads[EMBEDDING_KEY].contiguous(), state["count"],
+            grads[EMBEDDING_KEY].contiguous(), state["count"] if step is None else step,
             stochastic_rounding=self._stochastic(state), **self._hparams,
         )
         self._step_rest(grads, state, model)
@@ -144,17 +165,19 @@ class FusedEmbeddingAdamW:
 
     @torch.no_grad()
     def update_sparse(
-        self, g_rest: dict, uid: torch.Tensor, summed: torch.Tensor, state: dict, model: nn.Module
+        self, g_rest: dict, uid: torch.Tensor, summed: torch.Tensor, state: dict, model: nn.Module,
+        step: torch.Tensor | None = None,
     ) -> dict:
         """Apply one step with the table gradient pre-reduced as (uid, summed):
         ascending unique row ids with a sentinel tail, and their summed
-        gradient rows, instead of a dense [V, D] gradient. Returns `state`."""
+        gradient rows, instead of a dense [V, D] gradient. `step`: this step's
+        row of the step block (None: built from the count). Returns `state`."""
         if self.lazy:
             raise ValueError("the lazy optimizer steps through gather_catch_up and update_sparse_lazy")
         state["count"] += 1
         sparse_adamw(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
-            uid, summed, state["count"],
+            uid, summed, state["count"] if step is None else step,
             stochastic_rounding=self._stochastic(state), **self._hparams,
         )
         self._step_rest(g_rest, state, model)
@@ -163,31 +186,35 @@ class FusedEmbeddingAdamW:
     # ---- lazy mode (O(touched rows) a step, ops/lazy_adamw.py) ----
 
     @torch.no_grad()
-    def gather_catch_up(self, model: nn.Module, state: dict, uid: torch.Tensor):
+    def gather_catch_up(self, model: nn.Module, state: dict, uid: torch.Tensor,
+                        step: torch.Tensor | None = None):
         """The touched rows with their pending updates applied: float32
         (w_c, mu_c, nu_c) [U, D], what dense AdamW would hold BEFORE this
         step's gradient (step ``count``), so the forward sees the dense
-        trajectory's weights. Sentinel slots hold zeros and are never read."""
+        trajectory's weights. Sentinel slots hold zeros and are never read.
+        `step`: this step's row of the step block (None: from the count)."""
         return lazy_adamw.gather_catch_up(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
-            state["last_step"], uid, state["count"] + 1, tail_terms=self.lazy_tail_terms,
-            **self._hparams,
+            state["last_step"], uid, state["count"] + 1 if step is None else step,
+            tail_terms=self.lazy_tail_terms, **self._hparams,
         )
 
     @torch.no_grad()
     def update_sparse_lazy(
         self, g_rest: dict, uid: torch.Tensor, summed: torch.Tensor, w_c, mu_c, nu_c,
-        state: dict, model: nn.Module,
+        state: dict, model: nn.Module, step: torch.Tensor | None = None,
     ) -> dict:
         """One step for the touched rows only: (w_c, mu_c, nu_c) from
         ``gather_catch_up`` on the SAME uid, `summed` the per-slot gradient
         (sentinel slots zero). Writes the uid rows of table, moments and
         ``last_step`` (= the new count); steps the other parameters through
-        ``torch.optim.AdamW``. Returns `state`."""
+        ``torch.optim.AdamW``. `step` as for ``gather_catch_up``. Returns
+        `state`."""
         state["count"] += 1
         lazy_adamw.touched_update_scatter(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
-            state["last_step"], uid, w_c, mu_c, nu_c, summed, state["count"],
+            state["last_step"], uid, w_c, mu_c, nu_c, summed,
+            state["count"] if step is None else step,
             stochastic_rounding=self._stochastic(state), **self._hparams,
         )
         self._step_rest(g_rest, state, model)
@@ -222,27 +249,27 @@ class FusedEmbeddingAdamW:
         if "last_step" in state:
             out["last_step"] = state["last_step"]
         for name, p in rest_parameters(model).items():
-            s = state["rest"].state.get(p)
-            out[f"rest.{name}.step"] = torch.tensor(float(s["step"]) if s else 0.0)
-            out[f"rest.{name}.exp_avg"] = s["exp_avg"] if s else torch.zeros_like(p)
-            out[f"rest.{name}.exp_avg_sq"] = s["exp_avg_sq"] if s else torch.zeros_like(p)
+            s = state["rest"].state[p]
+            out[f"rest.{name}.step"] = torch.tensor(float(s["step"]))
+            out[f"rest.{name}.exp_avg"] = s["exp_avg"]
+            out[f"rest.{name}.exp_avg_sq"] = s["exp_avg_sq"]
         return out
 
     def load_state(self, state: dict, model: nn.Module, saved: dict) -> dict:
-        """Fill `state` (from ``init``) with the flat dict of ``export_state``
-        (from a checkpoint, or ``convert.opt_state_from_jax``); a lazy state
-        needs ``last_step``. Returns `state`."""
+        """Fill `state` (from ``init``) IN PLACE with the flat dict of
+        ``export_state`` (from a checkpoint, or ``convert.opt_state_from_jax``);
+        a lazy state needs ``last_step``. Every tensor keeps its device, the
+        rest-AdamW step counter too (on the card with ``capturable``).
+        Returns `state`."""
         state["count"] = int(saved["count"])
         with torch.no_grad():
             state["emb_mu"].copy_(saved["emb_mu"])
             state["emb_nu"].copy_(saved["emb_nu"])
             if self.lazy:
                 state["last_step"].copy_(saved["last_step"])
-        rest = state["rest"]
-        for name, p in rest_parameters(model).items():
-            rest.state[p] = {
-                "step": torch.tensor(float(saved[f"rest.{name}.step"])),
-                "exp_avg": saved[f"rest.{name}.exp_avg"].to(p.device, p.dtype).clone(),
-                "exp_avg_sq": saved[f"rest.{name}.exp_avg_sq"].to(p.device, p.dtype).clone(),
-            }
+            for name, p in rest_parameters(model).items():
+                s = state["rest"].state[p]
+                s["step"].fill_(float(saved[f"rest.{name}.step"]))
+                s["exp_avg"].copy_(saved[f"rest.{name}.exp_avg"])
+                s["exp_avg_sq"].copy_(saved[f"rest.{name}.exp_avg_sq"])
         return state

@@ -8,8 +8,20 @@ BatchNorm buffers move during the forward, the table and its moments inside
 the fused AdamW pass, the other parameters inside ``torch.optim.AdamW``.
 
 Per-step randomness is explicit: the Trainer derives a 64-bit step seed on
-the host from ``(seed, epoch, step)`` and the model splits it per layer into
-the attention-dropout seed and the seed of the node-dropout generator.
+the host from ``(seed, epoch, step)``. A step puts it, with the step count and
+what derives from the count, into a row of the step block
+(``ops/step_block.py``) on the device, one copy a step, where the model's
+layers and the kernels read their seeds and the AdamW kernels their count,
+bias corrections and rounding seeds.
+
+With ``chain > 1`` (sparse steps) the Trainer groups the epoch's batches of one
+node bucket by ``chain`` (``data/batching.chain_iterator``) and runs each
+full group as one chained step over the stacked batches; a partial group at a
+bucket boundary runs as chains of ``SUBCHAIN`` steps and single steps. On the
+card a chained step replays CUDA graphs (``train/graphs.py``); on the CPU it
+is a loop over the slots. Either way it is the program of the unchained loop,
+step for step and seed for seed: a chained run equals an unchained one bit for
+bit. Evaluation chains the same way.
 
 ``Trainer.train()`` runs the JAX package's training policy: evaluation every
 ``eval_every`` epochs on recall/NDCG at ``k_values``, early stop on
@@ -22,12 +34,12 @@ evaluation (which the save after it shares) and before the backstop save, so
 checkpoints hold the dense-trajectory table. Checkpoints are
 ``train/checkpoint.py``'s format with the optimizer file.
 
-Not ported yet (ROADMAP.md, queue A): chained steps (``chain > 1``) and the
-C++ batch assembly engine.
+Not ported yet (ROADMAP.md, queue A): the C++ batch assembly engine.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -39,14 +51,20 @@ import torch
 from torch import nn
 
 from gat_recommendation_torch.data.batching import (
+    GradIndex,
     SessionBatch,
+    chain_iterator,
     make_grad_index,
+    stack_batches,
+    stack_grad_indices,
     to_device,
 )
 from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.ops.rounding import mix_seed
 from gat_recommendation_torch.ops.scoring import full_catalog_topk
+from gat_recommendation_torch.ops import step_block
 from gat_recommendation_torch.train import checkpoint
+from gat_recommendation_torch.train.graphs import GraphCache
 from gat_recommendation_torch.train.hits_io import load_hits, save_hits
 from gat_recommendation_torch.train.losses import bpr_loss
 from gat_recommendation_torch.train.metrics import compute_ndcg_at_k, compute_recall_at_k
@@ -73,22 +91,32 @@ def make_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Ca
     Forward in train mode, the loss gathering targets and negatives from the
     table, gradients of every parameter (the table's as a dense [V, D]
     tensor), row 0 of the table gradient zeroed (the padding item never
-    updates), then ``optimizer.update_full``.
+    updates), then ``optimizer.update_full``. The step's count and seeds reach
+    the model and the kernels as a one-row step block.
     """
 
     def train_step(batch: SessionBatch, seed: int = 0) -> torch.Tensor:
         model.train()
         params = dict(model.named_parameters())
-        sess = model(batch, seed=seed)
+        row = next_steps_block(model, optimizer, opt_state, [seed], batch.node_ids.device)[0]
+        sess = model(batch, seed=row)
         loss, _aux = loss_fn(
             sess, batch.targets, batch.negatives, params[EMBEDDING_KEY], batch.sample_mask
         )
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()), allow_unused=True)))
         grads[EMBEDDING_KEY][0] = 0.0
-        optimizer.update_full(grads, opt_state, model)
+        optimizer.update_full(grads, opt_state, model, step=row)
         return loss.detach()
 
     return train_step
+
+
+def next_steps_block(model: nn.Module, optimizer, opt_state: dict, step_seeds, device) -> torch.Tensor:
+    """The step block of the next ``len(step_seeds)`` steps of
+    `optimizer` over `model` (counts from ``opt_state["count"] + 1``), on
+    `device`."""
+    return step_block.build(opt_state["count"], step_seeds, b1=optimizer.b1, b2=optimizer.b2,
+                            num_layers=model.config.num_layers, device=device)
 
 
 def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:
@@ -110,22 +138,36 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
     `batch` is a ``SessionBatch`` (the index is built on the fly from a copy
     on the host: convenient for tests) or a ``(SessionBatch, GradIndex)``
     pair already on the model's device (the Trainer's path). The loss needs
-    ``.from_embeddings`` (all built-in losses have it).
+    ``.from_embeddings`` (all built-in losses have it). The step's count and
+    seeds reach the model and the kernels as a one-row step block.
     """
-    if not hasattr(optimizer, "update_sparse"):
-        raise TypeError("optimizer must support update_sparse")
-    lazy = getattr(optimizer, "lazy", False)
+    body = _sparse_step_body(model, loss_fn, optimizer, opt_state)
 
     def train_step(batch, seed: int = 0) -> torch.Tensor:
-        model.train()
         if isinstance(batch, tuple):
             batch, gidx = batch
         else:
             gidx = to_device(make_grad_index(batch.to("cpu")), batch.node_ids.device)
+        device = batch.node_ids.device
+        return body(batch, gidx, next_steps_block(model, optimizer, opt_state, [seed], device)[0])
+
+    return train_step
+
+
+def _sparse_step_body(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:
+    """``body(batch, gidx, row) -> loss``: one sparse step on device tensors,
+    `row` the step's row of the step block. Shared by the single step and the
+    chained one, whose graphs capture it."""
+    if not hasattr(optimizer, "update_sparse"):
+        raise TypeError("optimizer must support update_sparse")
+    lazy = getattr(optimizer, "lazy", False)
+
+    def body(batch: SessionBatch, gidx: GradIndex, row: torch.Tensor) -> torch.Tensor:
+        model.train()
         B, N = batch.node_ids.shape
         K = batch.negatives.shape[1]
         if lazy:
-            w_c, mu_c, nu_c = optimizer.gather_catch_up(model, opt_state, gidx.uid)
+            w_c, mu_c, nu_c = optimizer.gather_catch_up(model, opt_state, gidx.uid, step=row)
             u_of_r = torch.empty_like(gidx.perm)  # perm is a permutation: every slot is set once
             u_of_r[gidx.perm] = gidx.seg
             rows = w_c[u_of_r].requires_grad_(True)
@@ -134,7 +176,7 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
         node_emb = rows[: B * N].view(B, N, -1)
         target_emb = rows[B * N : B * N + B]
         neg_emb = rows[B * N + B :].view(B, K, -1)
-        sess = model(batch, node_embeddings=node_emb, seed=seed)
+        sess = model(batch, node_embeddings=node_emb, seed=row)
         loss, _aux = loss_fn.from_embeddings(sess, target_emb, neg_emb, batch.sample_mask)
 
         other = rest_parameters(model)
@@ -143,12 +185,81 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
         summed = summed * (gidx.uid != 0)[:, None]
         g_rest = dict(zip(other, g_other))
         if lazy:
-            optimizer.update_sparse_lazy(g_rest, gidx.uid, summed, w_c, mu_c, nu_c, opt_state, model)
+            optimizer.update_sparse_lazy(g_rest, gidx.uid, summed, w_c, mu_c, nu_c, opt_state, model,
+                                         step=row)
         else:
-            optimizer.update_sparse(g_rest, gidx.uid, summed, opt_state, model)
+            optimizer.update_sparse(g_rest, gidx.uid, summed, opt_state, model, step=row)
         return loss.detach()
 
-    return train_step
+    return body
+
+
+def _fields(item) -> list[torch.Tensor]:
+    """The tensors of a SessionBatch or a GradIndex, in field order."""
+    if isinstance(item, GradIndex):
+        return list(item)
+    return [getattr(item, f.name) for f in dataclasses.fields(item)]
+
+
+def _slot(item, i: int):
+    """Slot i of a stacked SessionBatch or GradIndex."""
+    return item.map(lambda t: t[i]) if isinstance(item, SessionBatch) else GradIndex(*(t[i] for t in item))
+
+
+def _train_state(model: nn.Module, opt_state: dict) -> Callable[[], list]:
+    """What a sparse step writes in place: parameters, buffers (BatchNorm),
+    the table's moments and ``last_step``, the other parameters' AdamW state."""
+    def tensors() -> list:
+        rest = [t for s in opt_state["rest"].state.values() for t in s.values()]
+        table_state = [opt_state[k] for k in ("emb_mu", "emb_nu", "last_step") if k in opt_state]
+        return [*model.parameters(), *model.buffers(), *table_state, *rest]
+
+    return tensors
+
+
+def make_chained_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:
+    """C sparse steps in one call: ``chained(batches, gidxs, block) -> losses [C]``.
+
+    `batches` and `gidxs` are a stacked SessionBatch and GradIndex on the
+    model's device (``stack_batches`` / ``stack_grad_indices``), `block` the
+    C steps' rows of the step block (``next_steps_block``): slot i is the
+    step ``make_sparse_train_step`` would take with ``block[i]``'s seed, so
+    chained and unchained training are the same program. The losses stay on
+    the device.
+
+    On the CPU a loop over the slots. On the card one CUDA graph of a single
+    step per (node bucket, unique-row bucket), replayed C times, slot i
+    copied into its input buffers before the i-th replay (``train/graphs.py``):
+    the graphs do not depend on C, so sub-chains and full groups replay the
+    same graph, and a capture costs one warm-up step and one recorded one.
+    """
+    body = _sparse_step_body(model, loss_fn, optimizer, opt_state)
+
+    if model.get_parameter(EMBEDDING_KEY).device.type != "cuda":
+        def run_slots(batches: SessionBatch, gidxs: GradIndex, block: torch.Tensor) -> torch.Tensor:
+            return torch.stack([body(_slot(batches, i), _slot(gidxs, i), block[i])
+                                for i in range(block.shape[0])])
+
+        return run_slots
+    n_batch = len(dataclasses.fields(SessionBatch))
+    n_index = len(GradIndex._fields)
+
+    def step(*flat):
+        return body(SessionBatch(*flat[:n_batch]), GradIndex(*flat[n_batch:n_batch + n_index]), flat[-1])
+
+    cache = GraphCache(step, _train_state(model, opt_state), opt_state)
+
+    def chained(batches: SessionBatch, gidxs: GradIndex, block: torch.Tensor) -> torch.Tensor:
+        flat = [*_fields(batches), *_fields(gidxs), block]
+        losses = torch.empty(block.shape[0], device=block.device)
+        for i in range(block.shape[0]):
+            slot = [t[i] for t in flat]
+            losses[i].copy_(cache.run(tuple(t.shape for t in slot), slot))
+        opt_state["count"] += block.shape[0]
+        return losses
+
+    chained.graphs = cache
+    return chained
 
 
 def make_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Callable:
@@ -168,6 +279,32 @@ def make_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Calla
     return eval_step
 
 
+def make_chained_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Callable:
+    """C eval steps in one call: ``chained_eval(batches) -> top-k ids [C, B, k]``
+    over a stacked batch on the model's device, the same selector and outputs
+    as ``make_eval_step``. On the CPU a loop over the slots; on the card one
+    CUDA graph per (node bucket, C), which reads the table where it lies."""
+    eval_step = make_eval_step(model, k, topk_method)
+
+    def run_slots(node_ids, node_mask, adj, num_nodes) -> torch.Tensor:
+        batches = SessionBatch(node_ids, node_mask, adj, num_nodes)
+        return torch.stack([eval_step(_slot(batches, i)) for i in range(node_ids.shape[0])])
+
+    def forward_fields(batches: SessionBatch) -> list[torch.Tensor]:
+        return [batches.node_ids, batches.node_mask, batches.adj, batches.num_nodes]
+
+    if model.get_parameter(EMBEDDING_KEY).device.type != "cuda":
+        return lambda batches: run_slots(*forward_fields(batches))
+    cache = GraphCache(run_slots)
+
+    def chained_eval(batches: SessionBatch) -> torch.Tensor:
+        flat = forward_fields(batches)
+        return cache.run(tuple(t.shape for t in flat), flat).clone()
+
+    chained_eval.graphs = cache
+    return chained_eval
+
+
 def _device_copy(tensors: dict) -> dict:
     """A copy of every tensor of a flat dict on its own device (a snapshot
     that the next steps, which update in place, do not touch)."""
@@ -181,8 +318,10 @@ class Trainer:
     batches (``data.batching.iterate_batches``). The model must already be on
     `device` (``cuda`` when None, which raises without a CUDA device).
     Without an `optimizer`, ``FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)``.
-    ``sparse_embedding_grads`` chooses the sparse step over the dense one.
-    ``train()`` writes into `output_dir` (created at the first save):
+    ``sparse_embedding_grads`` chooses the sparse step over the dense one;
+    ``chain`` > 1 runs the sparse steps and the evaluation in chained groups
+    of that many batches (the dense step takes no chain, as in the JAX
+    package). ``train()`` writes into `output_dir` (created at the first save):
     ``checkpoint_best``, ``checkpoint_latest``, ``history.json`` and, with
     ``record_hits``, ``hits_k{k}.npz``. ``checkpoint_every`` counts
     evaluations: the latest checkpoint is written at every such evaluation,
@@ -211,10 +350,6 @@ class Trainer:
         record_hits: bool = False,
         device=None,
     ):
-        if chain != 1:
-            raise NotImplementedError(
-                "chained train steps are not ported yet (ROADMAP.md, queue A item 2b); use chain=1"
-            )
         self.device = resolve_device(device)
         table = model.get_parameter(EMBEDDING_KEY)
         if table.device.type != self.device.type:
@@ -232,7 +367,7 @@ class Trainer:
         self.k_values = k_values if k_values is not None else [10, 20]
         self.loss_fn = loss_fn or bpr_loss
         self.seed = seed
-        self.chain = 1
+        self.chain = chain if sparse_embedding_grads else 1
         self.defer_best = defer_best
         self.record_hits = record_hits
         self.current_epoch = 0
@@ -243,22 +378,34 @@ class Trainer:
         self.hits: list = []
         # One entry per checkpoint written or read: op, which, epoch, seconds, bytes.
         self.checkpoint_log: list[dict] = []
+        # How many chained train and eval dispatches ran: a bucket layout that
+        # never fills a group would run single steps only.
+        self.chained_dispatches = 0
+        self.chained_eval_dispatches = 0
         self._n_evals = 0
         self._latest_saved_epoch: int | None = None
         self._best_snapshot: tuple | None = None
         self.opt_state: dict | None = None
         self._train_step: Callable | None = None
+        self._chained_step: Callable | None = None
         self._eval_step = make_eval_step(self.model, max(self.k_values))
+        # Its graphs hold only the model's tensors, which keep their identity.
+        self._chained_eval = make_chained_eval_step(self.model, max(self.k_values)) if self.chain > 1 else None
+
     def init_state(self, reset_parameters: bool = True, opt_state: dict | None = None) -> dict:
         """Fresh optimizer state (or `opt_state`, to go on from it), and, unless
         `reset_parameters` is False (e.g. after loading weights), parameters
-        drawn anew from the Trainer's seed. Builds the train step over that
-        state and returns the state."""
+        drawn anew from the Trainer's seed. Builds the train steps over that
+        state (the chained step's graphs, captured over the previous state,
+        go with it) and returns the state."""
         if reset_parameters:
             self.model.reset_parameters(torch.Generator(self.device).manual_seed(self.seed))
         self.opt_state = self.optimizer.init(self.model) if opt_state is None else opt_state
         make = make_sparse_train_step if self.sparse_embedding_grads else make_train_step
         self._train_step = make(self.model, self.loss_fn, self.optimizer, self.opt_state)
+        if self.chain > 1:
+            self._chained_step = make_chained_sparse_train_step(
+                self.model, self.loss_fn, self.optimizer, self.opt_state)
         return self.opt_state
 
     def _transfer(self, batch: SessionBatch):
@@ -268,21 +415,59 @@ class Trainer:
             return to_device(batch, self.device)
         return to_device((batch, make_grad_index(batch)), self.device)
 
+    # A partial group at a bucket boundary runs as chains of this many steps
+    # before single steps, as in the JAX package; they replay the same graphs.
+    SUBCHAIN = 8
+
+    def _transfer_chain(self, batches: list) -> list:
+        """One ``chain_iterator`` group on the device: a full group is one
+        ("chained", batches, gidxs) entry; a partial one splits into SUBCHAIN
+        chains and single transferred steps."""
+        if len(batches) == self.chain:
+            return [self._stack_group(batches)]
+        out, i = [], 0
+        while len(batches) - i >= self.SUBCHAIN and self.chain > self.SUBCHAIN:
+            out.append(self._stack_group(batches[i:i + self.SUBCHAIN]))
+            i += self.SUBCHAIN
+        out.extend(self._transfer(b) for b in batches[i:])
+        return out
+
+    def _stack_group(self, batches: list) -> tuple:
+        gidxs = stack_grad_indices([make_grad_index(b) for b in batches])
+        return ("chained", *to_device((stack_batches(batches), gidxs), self.device))
+
     def step_seed(self, step: int) -> int:
         return mix_seed(self.seed, self.current_epoch, step)
 
     def train_epoch(self) -> float:
         """One epoch over ``train_batches(current_epoch)``; returns the mean
         loss. Losses stay on the device until the epoch ends: a readback per
-        step would make the host wait for the card every step."""
+        step would make the host wait for the card every step. With a chain,
+        full groups go through the chained step with the step seeds the
+        unchained loop would use."""
         if self._train_step is None:
             self.init_state(reset_parameters=False)
         losses = []
-        for step, batch in enumerate(self.train_batches(self.current_epoch)):
-            losses.append(self._train_step(self._transfer(batch), self.step_seed(step)))
+        if self.chain > 1:
+            step = 0
+            for group in chain_iterator(self.train_batches(self.current_epoch), self.chain):
+                for entry in self._transfer_chain(group):
+                    if isinstance(entry[0], str):  # ("chained", batches, gidxs)
+                        _, batches, gidxs = entry
+                        seeds = [self.step_seed(step + i) for i in range(gidxs.uid.shape[0])]
+                        block = next_steps_block(self.model, self.optimizer, self.opt_state, seeds, self.device)
+                        losses.append(self._chained_step(batches, gidxs, block))
+                        self.chained_dispatches += 1
+                        step += len(seeds)
+                    else:
+                        losses.append(self._train_step(entry, self.step_seed(step)))
+                        step += 1
+        else:
+            for step, batch in enumerate(self.train_batches(self.current_epoch)):
+                losses.append(self._train_step(self._transfer(batch), self.step_seed(step)))
         if not losses:
             return 0.0
-        return float(torch.stack(losses).mean())  # the epoch's one readback
+        return float(torch.cat([loss.reshape(-1) for loss in losses]).mean())  # the epoch's one readback
 
     def evaluate(self) -> dict:
         """recall@k and ndcg@k over ``val_batches()``, after the lazy
@@ -291,10 +476,20 @@ class Trainer:
         top-k stays on the device; one concatenated readback at the end."""
         self._materialize()
         device_tops, masks, targets = [], [], []
-        for batch in self.val_batches():
-            device_tops.append(self._eval_step(to_device(batch, self.device)))
-            masks.append(np.asarray(batch.sample_mask))
-            targets.append(np.asarray(batch.targets))
+        # With a chain, full groups of one node bucket are one chained
+        # evaluation each; partial groups take single steps. The order stays
+        # the batches', so predictions align with targets.
+        groups = chain_iterator(self.val_batches(), self.chain) if self.chain > 1 else (
+            [batch] for batch in self.val_batches())
+        for group in groups:
+            if len(group) == self.chain > 1:
+                tops = self._chained_eval(to_device(stack_batches(group), self.device))
+                device_tops.append(tops.reshape(-1, tops.shape[-1]))
+                self.chained_eval_dispatches += 1
+            else:
+                device_tops.extend(self._eval_step(to_device(batch, self.device)) for batch in group)
+            masks.extend(np.asarray(batch.sample_mask) for batch in group)
+            targets.extend(np.asarray(batch.targets) for batch in group)
         if not device_tops:
             predictions = np.zeros((0, max(self.k_values)), int)
             targets_arr = np.zeros((0,), int)

@@ -48,7 +48,7 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import (  # noqa: E402
     ADAMW, ATTN_GRAD_TOL, ATTN_TOL, DIM, HEADS, LAZY_COUNT, NUM_ITEMS, ROWS, SCORE_TOL, TABLE_TOL, _lazy_inputs,
-    device_ms, nvidia_smi, reset_ms,
+    device_ms, nvidia_smi, reset_ms, step_row,
 )
 from gat_recommendation_torch.ops import _build  # noqa: E402
 from gat_recommendation_torch.ops import lazy_adamw  # noqa: E402
@@ -142,6 +142,7 @@ def time_attention(libs: dict, gen: torch.Generator) -> None:
         adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
         adj[:, 0] = False
         out = torch.empty_like(q)
+        seed_on_card = torch.tensor(seed, device=dev)  # the kernels read the seed from device memory
         want = session_attention_reference(q, k, v, adj, HEADS, p_drop, seed)
         qh, kh, vh = (t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v))
         sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -149,12 +150,13 @@ def time_attention(libs: dict, gen: torch.Generator) -> None:
         for name, lib in libs.items():
             fn = lib.session_attention_forward_variant
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             row = {"variant": name, "B": B, "N": N, "library_ms": sdpa}
             for staged, batch in ((1, B), (0, B), (0, 1)):
                 def run():
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), out.data_ptr(), batch, N,
-                             HEADS, d, math.sqrt(d), 1.0 - p_drop, keep_threshold(p_drop), seed, staged,
+                             HEADS, d, math.sqrt(d), 1.0 - p_drop, keep_threshold(p_drop), seed_on_card.data_ptr(),
+                             staged,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError_t {err}")
@@ -178,6 +180,7 @@ def time_backward(libs: dict, gen: torch.Generator) -> None:
         adj = torch.rand(B, N, N, device=dev, generator=gen) < density
         adj[:, 0] = False
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        seed_on_card = torch.tensor(seed, device=dev)
         want = torch.autograd.grad(
             session_attention_reference(*leaves, adj, HEADS, p_drop, seed), leaves, dout)
         heads_first = [t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v, dout)]
@@ -193,12 +196,12 @@ def time_backward(libs: dict, gen: torch.Generator) -> None:
         for name, lib in libs.items():
             fn = lib.session_attention_backward
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
 
             def run():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), dout.data_ptr(),
                          *(t.data_ptr() for t in got), B, N, HEADS, d, math.sqrt(d), 1.0 - p_drop,
-                         keep_threshold(p_drop), seed, torch.cuda.current_stream().cuda_stream)
+                         keep_threshold(p_drop), seed_on_card.data_ptr(), torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
 
@@ -231,6 +234,7 @@ def time_lazy(libs: dict, gen: torch.Generator) -> None:
         wants[label] = [t.clone() for t in start]
         lazy_adamw.materialize_reference(*wants[label], LAZY_COUNT, **ADAMW)
     want_rows = lazy_adamw.gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW)
+    count_row = step_row(LAZY_COUNT)  # a timed graph reads the count from the card
     work = [t.clone() for t in state]
 
     def restore(start):
@@ -253,7 +257,7 @@ def time_lazy(libs: dict, gen: torch.Generator) -> None:
         rows = lazy_adamw.gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW)
         torch.cuda.synchronize()
         row["gather_within_tolerance"] = bool(torch.allclose(rows[0], want_rows[0], **TABLE_TOL))
-        row["gather_ms"] = device_ms(lambda: lazy_adamw.gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW), 10, 5)
+        row["gather_ms"] = device_ms(lambda: lazy_adamw.gather_catch_up(*state, uid, count_row, **ADAMW), 10, 5)
         print(json.dumps(row), flush=True)
     _build._libs.pop("lazy_adamw")
 

@@ -30,6 +30,15 @@ and the second launch counter of each wrapper says which kernel ran. The
 attention backward is one kernel (one block per session and head) whose
 product passes take 2 x 2 tiles up to N = 16 and 4 x 4 tiles above; its cases
 stand on both sides of that, on and off multiples of 4 and 8 nodes.
+
+The kernels that run inside the chained train step's CUDA graphs read the
+step count, the bias corrections and the seeds from a row of the step block
+in device memory: given a row of a block of several steps they must EQUAL
+what they give for the Python int (the one-row block the wrapper builds from
+the host functions of the by-value path). Node dropout's kernel EQUALS its
+plain version, forward and backward. Replayed graphs, a single step and
+groups of four, must EQUAL the eager unchained steps on the same state bit for
+bit, with the launch counters counting per step run.
 """
 
 import numpy as np
@@ -38,6 +47,7 @@ import torch
 
 from gat_recommendation_torch.ops import embedding_adamw as ea
 from gat_recommendation_torch.ops import lazy_adamw as la
+from gat_recommendation_torch.ops import node_dropout as nd
 from gat_recommendation_torch.ops import score_chunkmax as sc
 from gat_recommendation_torch.ops import scoring
 from gat_recommendation_torch.ops import session_attention as sa
@@ -584,3 +594,221 @@ def test_lazy_wrappers_reject_what_the_kernels_do_not_take(cuda):
         la.materialize(table, mu, nu, last, 10, tail_terms=65, **HYPER)
     with pytest.raises(ValueError, match="bfloat16"):
         la.materialize(table, mu, nu, last, 10, stochastic_rounding=True, **HYPER)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("shape", [(512, 56, 256), (3, 7, 4), (16, 8, 64)])
+def test_node_dropout_kernel_matches_plain_bit_for_bit(cuda, shape, rate):
+    """Forward and backward of the kernel against the plain version on the
+    same seed: the same keep bits and the same float32 product, so EQUAL;
+    every launch counted, the backward's too."""
+    from gat_recommendation_torch.ops import masked, rounding
+
+    gen = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
+    seed = 2**63 + 12345
+    leaf = x.clone().requires_grad_(True)
+    before = nd.node_dropout.launches
+    out = nd.node_dropout(leaf, rate, seed)
+    (grad,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    assert nd.node_dropout.launches == before + 2
+    assert torch.equal(out, masked.dropout(x, rate, True, seed))
+    assert torch.equal(grad, masked.dropout(g, rate, True, seed))
+    kept = rounding.keep_mask(shape, rate, seed, cuda)
+    assert torch.equal(out != 0, kept & (x != 0))
+    assert nd.node_dropout(x, 0.0, seed) is x
+    with pytest.raises(ValueError, match="multiple of 4"):
+        nd.node_dropout(torch.ones(3, 5, device=cuda), rate, seed)
+
+
+# ---- the step block, CUDA graphs of the chained steps ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,nu_dtype,sr", LAZY_MOMENTS)
+def test_step_row_entry_points_equal_the_int_path_and_plain(cuda, mu_dtype, nu_dtype, sr):
+    """Every kernel that reads the step block, given the row of a block of
+    several steps, equals the same kernel given the Python int (the one-row
+    block the wrapper builds from the host functions of the by-value path) bit
+    for bit, and its plain version as above."""
+    from gat_recommendation_torch.ops import step_block
+
+    rows, D, U, n_real, count = 999, 36, 64, 64, 70
+    table, mu, nu, last, uid, summed = _lazy_inputs(cuda, rows, D, U, n_real, count, mu_dtype, nu_dtype)
+    block = step_block.build(count - 3, [11, 12, 13], b1=HYPER["b1"], b2=HYPER["b2"], num_layers=2, device=cuda)
+    row = block[2]  # the step whose count is `count`
+    by_row = la.gather_catch_up(table, mu, nu, last, uid, row, **HYPER)
+    by_int = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
+    want = la.gather_catch_up_reference(table, mu, nu, last, uid, count, **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(by_row, by_int))
+    torch.testing.assert_close(by_row[0], want[0], **TABLE_TOL)
+    states = [[t.clone() for t in (table, mu, nu, last)] for _ in range(3)]
+    la.touched_update_scatter(*states[0], uid, *by_row, summed, row, stochastic_rounding=sr, **HYPER)
+    la.touched_update_scatter(*states[1], uid, *by_row, summed, count, stochastic_rounding=sr, **HYPER)
+    la.touched_update_scatter_reference(*states[2], uid, *by_row, summed, count, stochastic_rounding=sr,
+                                        **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(states[0], states[1]))
+    assert all(_same_bits(a, b) for a, b in zip(states[0][1:], states[2][1:]))
+    sparse = [[t.clone() for t in (table, mu, nu)] for _ in range(3)]
+    sp.sparse_adamw(*sparse[0], uid, summed, row, stochastic_rounding=sr, **HYPER)
+    sp.sparse_adamw(*sparse[1], uid, summed, count, stochastic_rounding=sr, **HYPER)
+    sp.sparse_adamw_reference(*sparse[2], uid, summed, count, stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(sparse[0], sparse[1]))
+    assert all(_same_bits(a, b) for a, b in zip(sparse[0][1:], sparse[2][1:]))
+    grad = 1e-3 * torch.randn(table.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    dense = [[t.clone() for t in (table, mu, nu)] for _ in range(3)]
+    ea.embedding_adamw(*dense[0], grad, row, stochastic_rounding=sr, **HYPER)
+    ea.embedding_adamw(*dense[1], grad, count, stochastic_rounding=sr, **HYPER)
+    ea.embedding_adamw_reference(*dense[2], grad, count, stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(dense[0], dense[1]))
+    assert all(_same_bits(a, b) for a, b in zip(dense[0][1:], dense[2][1:]))
+    # Node dropout reads its layer's seed field; forward and backward.
+    x = torch.randn(64, 56, 256, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    node = step_block.node_dropout_seed_field(1)
+    int_seed = int(block[1, node]) & (2**64 - 1)
+    leaves = [x.clone().requires_grad_(True) for _ in range(2)]
+    outs = [nd.node_dropout(leaves[0], 0.1, block[1, node]), nd.node_dropout(leaves[1], 0.1, int_seed)]
+    grads = [torch.autograd.grad(o, lv, torch.ones_like(o))[0] for o, lv in zip(outs, leaves)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
+    # The attention reads its layer's seed field; forward and backward.
+    seed = step_block.attention_seed_field(1)
+    q, k, v, adj = _attn_inputs(cuda, 64, 56, 256)
+    int_seed = int(block[1, seed]) & (2**64 - 1)
+    leaves = [[t.clone().requires_grad_(True) for t in (q, k, v)] for _ in range(2)]
+    outs = [sa.session_attention(*leaves[0], adj, 2, 0.1, block[1, seed]),
+            sa.session_attention(*leaves[1], adj, 2, 0.1, int_seed)]
+    grads = [torch.autograd.grad(o, lv, torch.ones_like(o)) for o, lv in zip(outs, leaves)]
+    assert torch.equal(outs[0], outs[1]) and all(torch.equal(a, b) for a, b in zip(*grads))
+    torch.testing.assert_close(outs[0], sa.session_attention_reference(q, k, v, adj, 2, 0.1, int_seed), **ATTN_TOL)
+
+
+def _train_setup(dev, dropout, lazy, seed=0):
+    """A small Graph Transformer on the card, its optimizer state, and four
+    training batches of one node bucket with their indexes."""
+    from gat_recommendation_torch.data import batching
+    from gat_recommendation_torch.models import registry
+    from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
+
+    model = registry.create_model("graph_transformer_optimized", 600, embedding_dim=64, hidden_dim=64,
+                                  laplacian_k=4, dropout=dropout, device=dev,
+                                  generator=torch.Generator(dev).manual_seed(seed))
+    opt = FusedEmbeddingAdamW(1e-2, weight_decay=1e-4, lazy=lazy)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(3, 9, 400)
+    sid = np.repeat(np.arange(400), lengths)
+    items = rng.integers(1, 600, int(lengths.sum()))
+    ds = batching.SessionDataset((sid, np.arange(len(sid)), items),
+                                 (rng.integers(1, 600, 8000), rng.integers(1, 600, 8000)), num_items=600)
+    batches = list(batching.iterate_batches(ds, 64, shuffle=True, seed=seed))[:4]
+    return model, opt, opt.init(model), batches
+
+
+def _everything(model, state):
+    rest = [t for s in state["rest"].state.values() for t in s.values()]
+    return [*model.state_dict().values(), state["emb_mu"], state["emb_nu"], *rest,
+            *([state["last_step"]] if "last_step" in state else [])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lazy", [True, False])
+def test_chained_graphs_equal_unchained_steps_bit_for_bit(cuda, lazy):
+    """Groups of 1 (a replayed single step: the first call captures, the
+    second only replays) and of 4 against the eager unchained steps on the
+    same state, dropout 0.1: losses, weights, BatchNorm buffers, moments,
+    last_step and the other parameters' AdamW state equal. The launch
+    counters count per step run, the capture's warm-up step uncounted."""
+    from gat_recommendation_torch.data import batching
+    from gat_recommendation_torch.train import trainer
+    from gat_recommendation_torch.train.graphs import read_counters
+    from gat_recommendation_torch.train.losses import create_loss_function
+
+    loss_fn = create_loss_function("dual")
+    seeds = list(range(100, 110))
+    runs = []
+    for chained in (False, True):
+        model, opt, state, batches = _train_setup(cuda, 0.1, lazy)
+        groups = [batches[:1], batches[1:2], batches, batches]  # 1, 1 (replay only), 4, 4 (replay only)
+        single = trainer.make_sparse_train_step(model, loss_fn, opt, state)
+        step = trainer.make_chained_sparse_train_step(model, loss_fn, opt, state)
+        losses, i = [], 0
+        before = read_counters()
+        for group in groups:
+            gseeds = seeds[i:i + len(group)]
+            if chained:
+                gidxs = batching.stack_grad_indices([batching.make_grad_index(b) for b in group])
+                stacked, gidxs = batching.to_device((batching.stack_batches(group), gidxs), cuda)
+                block = trainer.next_steps_block(model, opt, state, gseeds, cuda)
+                losses.append(step(stacked, gidxs, block))
+            else:
+                for b, s in zip(group, gseeds):
+                    gidx = batching.make_grad_index(b)
+                    losses.append(single(batching.to_device((b, gidx), cuda), s).reshape(1))
+            i += len(group)
+        torch.cuda.synchronize()
+        counted = [a - b for a, b in zip(read_counters(), before)]
+        runs.append((torch.cat(losses), _everything(model, state), state["count"], counted))
+        if chained:
+            n_graphs = len(step.graphs.graphs)
+    (want, want_state, want_count, want_launches), (got, got_state, got_count, got_launches) = runs
+    assert torch.equal(got, want) and got_count == want_count == 10
+    assert all(_same_bits(a, b) if a.is_floating_point() or a.dtype == torch.int32 else torch.equal(a, b)
+               for a, b in zip(got_state, want_state))
+    assert got_launches == want_launches  # per step: 2 forward, 2 backward, the table update
+    assert n_graphs == 1
+
+
+@pytest.mark.cuda
+def test_sorted_segment_sum_is_capture_safe_and_repeats_its_bits(cuda):
+    """torch.segment_reduce (lengths, unsafe) inside a CUDA graph at the full
+    step's R = 31,744 gradient rows and U = 16,384 segments equals the eager
+    call bit for bit."""
+    from gat_recommendation_torch.train.trainer import sorted_segment_sum
+
+    rng = np.random.default_rng(8)
+    R, U, D = 31744, 16384, 256
+    lengths = np.bincount(np.sort(rng.integers(0, 12000, R)), minlength=U).astype(np.int64)
+    rows = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32)).to(cuda)
+    lengths = torch.from_numpy(lengths).to(cuda)
+    want = sorted_segment_sum(rows, lengths)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sorted_segment_sum(rows, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sorted_segment_sum(rows, lengths)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not got[12000:].any()
+
+
+@pytest.mark.cuda
+def test_a_resumed_chained_trainer_equals_an_uninterrupted_one(cuda, tmp_path):
+    """Resume builds a new optimizer state and so new graphs: two epochs and a
+    resumed third equal three straight epochs bit for bit (chain 4, lazy,
+    dropout 0.1, an evaluation after each epoch)."""
+    from gat_recommendation_torch.train.losses import create_loss_function
+    from gat_recommendation_torch.train.trainer import Trainer
+
+    def trainer(out, epochs):
+        model, opt, _, batches = _train_setup(cuda, 0.1, True)
+        return Trainer(model, lambda e: iter(batches * 2), lambda: iter(batches), optimizer=opt,
+                       output_dir=tmp_path / out, max_epochs=epochs, loss_fn=create_loss_function("dual"),
+                       seed=3, sparse_embedding_grads=True, chain=4)
+
+    straight = trainer("straight", 3)
+    want = straight.train()
+    trainer("resumed", 2).train()
+    resumed = trainer("resumed", 3)
+    got = resumed.train(resume=True)
+    assert got == want and resumed.chained_dispatches == 2 and resumed.chained_eval_dispatches == 1
+    assert all(_same_bits(a, b) for a, b in zip(_everything(resumed.model, resumed.opt_state),
+                                                _everything(straight.model, straight.opt_state)))

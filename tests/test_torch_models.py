@@ -188,7 +188,7 @@ def test_dropout_scales_kept_entries_and_is_identity_in_eval():
     distribution: the kept share and the 1/(1-rate) scale."""
     x = torch.ones(200_000)
     assert port_masked.dropout(x, 0.25, train=False) is x
-    out = port_masked.dropout(x, 0.25, train=True, generator=torch.Generator().manual_seed(0))
+    out = port_masked.dropout(x, 0.25, train=True, seed=0)
     kept = out != 0
     assert abs(kept.float().mean().item() - 0.75) < 0.005
     assert torch.allclose(out[kept], torch.full_like(out[kept], 1 / 0.75))

@@ -110,13 +110,17 @@ def test_every_bucket_is_exercised(recommenders):
     assert used == set(BUCKETS)
 
 
-def test_health_and_warmup(checkpoints):
+def test_health_and_warmup(checkpoints, recommenders):
     _, port_path, edges = checkpoints
     rec = port_rec.Recommender(port_path, edges, buckets=(8, 16), warmup=True, device="cpu")
     h = rec.health()
     assert h["num_items"] == NUM_ITEMS and h["embedding_dim"] == 16
     assert h["checkpoint_epoch"] == 3 and h["val_recall_at_10"] == 0.25
     assert h["device"] == "cpu"
+    # Every key the JAX server's GET /health sends; no int8 scorer in the port yet.
+    jax_r, _ = recommenders
+    assert set(jax_r.health()) <= set(h)
+    assert h["int8_scoring"] is False
 
 
 BODIES = [

@@ -244,7 +244,7 @@ def test_dropout_is_seeded_per_step_and_layer_and_off_in_eval():
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_node_dropout_keep_rate_and_scaling(rate):
-    gen = torch.Generator().manual_seed(3)
+    gen = 3  # the seed of the counter hash
     x = torch.ones(256, 256)
     y = port_masked.dropout(x, rate, True, gen)
     kept = y != 0
@@ -355,8 +355,6 @@ def test_unported_options_raise_naming_the_roadmap():
     _, port_ds = _corpus(seed=10, sessions=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         next(port_batching.iterate_batches(port_ds, 4, engine="native"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_trainer.Trainer(model, lambda epoch: iter(()), lambda: iter(()), chain=32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.create_model("graph_transformer", 50, device="cpu")  # the FFN branch
     with pytest.raises(TypeError, match="update_sparse"):
