@@ -7,7 +7,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
   1. card and software: the nvidia-smi name and power limit, torch and CUDA
      versions; TF32 is switched off for matmuls and cuDNN.
   2. build the CUDA libraries from gat_recommendation_torch/csrc with nvcc
-     (in parallel) and print the build seconds and register counts.
+     (in parallel) and print the build seconds and register counts; count
+     the instructions and reciprocals of the lazy series loop in the
+     compiled gather and materialize (cuobjdump -sass), which their bounds
+     in phase 7 use, and fail if the loop still holds an IEEE division's
+     check (FCHK).
   3. each kernel against its plain PyTorch version on the card, at the
      serving shapes (attention B=1, N in {8,16,32,56}, and B=512, N=56;
      scoring B=1 over the full 467,456-row table), plus an integer-valued
@@ -46,10 +50,15 @@ Phases, each fatal on failure (nothing is caught and carried on):
      rows 0 .. 65 and several hundred steps behind, uid 0 and a sentinel
      tail: weights TABLE_TOL, moments and last_step equal, rows outside uid
      unchanged; materialize timed from single calls on a restored state.
+     The gather's and materialize's bounds: bytes, the series loop's
+     instructions counted in phase 2 and one reciprocal an element and term
+     (16 lanes an SM and clock), beside the earlier bound of 13
+     instructions an element and term (the series with an IEEE division).
      Node dropout at [512, 56, 256], rate 0.1, forward and backward equal to
      the plain version bit for bit.
   8. the training slice at full width: seeded synthetic sessions through
-     SessionDataset and iterate_batches(batch_size=512), a Trainer epoch of
+     SessionDataset and iterate_batches(batch_size=512) (the default engine,
+     the C++ one of data/native.py), a Trainer epoch of
      6 sparse steps over all four buckets, 6 more sparse steps on one batch
      (the loss must fall), 2 dense steps, all with dropout 0.1, then
      Trainer.evaluate and the eval step's top-20 against the dense oracle;
@@ -80,7 +89,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
      lazy steps at N = 56 at chain 1 and chain TIMED_CHAIN (wall and device
      ms per step, profile, host launch calls, graphs, capture seconds, pool
      bytes).
- 10. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 10. the host's batch engines: one epoch of the chained corpus assembled by
+     the C++ engine (data/native.py, built with g++ at first use; phase 8's
+     batches come from it) and by the numpy engine, ms per batch of each;
+     the epochs equal but for the negatives.
+ 11. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -89,6 +102,7 @@ Exits nonzero without a CUDA device, and without the package beside it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -104,6 +118,7 @@ import torch
 from gat_recommendation_torch.data.batching import (
     SessionDataset,
     iterate_batches,
+    pick_bucket,
     make_grad_index,
     stack_batches,
     stack_grad_indices,
@@ -165,10 +180,15 @@ INT32_INSTRUCTIONS_PER_S = FP32_INSTRUCTIONS_PER_S / 2
 # The counter hash and the keep test, per element: two rounds of mix32 (eight
 # shifts, xors and multiplies each), three xors and the shift and compare.
 HASH_INSTRUCTIONS = 21
-# A term of the lazy catch-up series, per element: three FMUL, two FADD and an
-# IEEE division (__fdiv_rn: a reciprocal, its Newton steps and the rounding
-# check, about 8 instructions).
-SERIES_INSTRUCTIONS = 13
+# The multi-function unit (reciprocal, exp2, sqrt approximations): 16 lanes an
+# SM and clock, an eighth of the float32 instructions' 128.
+MUFU_PER_S = FP32_INSTRUCTIONS_PER_S / 8
+# A term of the lazy catch-up series, per element, as the bound of the series
+# with an IEEE division assumed it: three FMUL, two FADD and __fdiv_rn (a
+# reciprocal, its Newton steps and the rounding check, about 8 instructions).
+# The bound now uses the instructions counted in the compiled loop
+# (lazy_series_sass); this one stays beside it as "bound_ms_ieee_division".
+SERIES_INSTRUCTIONS_IEEE_DIVISION = 13
 
 NUM_ITEMS = 466_865  # the reference catalog
 NUM_EDGES = 737_716  # the reference co-occurrence graph's edge count
@@ -319,15 +339,90 @@ def seed_on_card(seed: int) -> torch.Tensor:
 
 
 def bound_ms(n_bytes: float, n_flops: float, n_instructions: float = 0.0,
-             n_int_instructions: float = 0.0) -> tuple[float, str]:
+             n_int_instructions: float = 0.0, n_mufu: float = 0.0) -> tuple[float, str]:
     """The larger of the bytes over the memory rate and the work over the
     peak for its type: float32 operations, or, where an operation is a
-    sequence (the IEEE division), issued float32 instructions; 32-bit integer
-    instructions (the counter hash) at the integer lanes' rate."""
+    sequence (a division), issued instructions at one a lane and clock;
+    32-bit integer instructions (the counter hash) at the integer lanes'
+    rate; reciprocals at the multi-function unit's rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = max(n_flops / FP32_FLOP_PER_S, n_instructions / FP32_INSTRUCTIONS_PER_S,
-                n_int_instructions / INT32_INSTRUCTIONS_PER_S)
+                n_int_instructions / INT32_INSTRUCTIONS_PER_S, n_mufu / MUFU_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuobjdump_path() -> str:
+    """cuobjdump of the toolkit whose nvcc built the kernels."""
+    path = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not path.exists():
+        raise RuntimeError(f"{path} not found: the lazy series' instructions cannot be counted")
+    return str(path)
+
+
+def sass_functions(library: Path) -> dict[str, list[tuple[int, str]]]:
+    """Each kernel's SASS in a library: {mangled name: [(address, instruction)]}
+    (branches read `BRA 0x1a0`, the target's address)."""
+    out = subprocess.run([cuobjdump_path(), "-sass", str(library)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    funcs: dict[str, list] = {}
+    name = None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins and name:
+            funcs[name].append((int(ins.group(1), 16), ins.group(2)))
+    return funcs
+
+
+def series_loop_counts(body: list[tuple[int, str]]) -> dict:
+    """The series loop of a lazy kernel: of the innermost loops (a backward
+    branch and what lies between its target and it, holding no other loop)
+    with a reciprocal (MUFU.RCP) in them, the one with the most, the
+    shortest of equals (a row's setup loop has as many, and exp2). Every
+    element and term of the series takes one reciprocal, so the loop's
+    instructions over its reciprocals are the instructions an element and
+    term; `mix` counts the loop's instructions by opcode."""
+    loops = []
+    for addr, text in body:
+        bra = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if bra and int(bra.group(1), 16) <= addr:
+            loops.append((int(bra.group(1), 16), addr))
+    innermost = [(a, b) for a, b in loops if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    best = None
+    for a, b in innermost:
+        loop = [t for x, t in body if a <= x <= b and not t.startswith("NOP")]
+        rcp = sum("MUFU.RCP" in t for t in loop)
+        if rcp and (best is None or (rcp, -len(loop)) > (best[0], -len(best[1]))):
+            best = (rcp, loop)
+    if best is None:
+        raise AssertionError("no innermost loop with a reciprocal (MUFU.RCP) in the kernel's SASS")
+    rcp, loop = best
+    opcodes = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in loop]
+    return {
+        "loop_instructions": len(loop),
+        "reciprocals": rcp,
+        "instructions_per_term": len(loop) / rcp,
+        "fchk": opcodes.count("FCHK"),
+        "branches": sum(o.startswith("BRA") for o in opcodes),
+        "mix": {o: opcodes.count(o) for o in sorted(set(opcodes))},
+    }
+
+
+def lazy_series_sass(library: Path) -> dict[str, dict]:
+    """series_loop_counts of the gather and materialize kernels (float32 moments)."""
+    funcs = sass_functions(library)
+    out = {}
+    for kernel, tag in (("lazy_gather_catch_up", "gather_catch_up_kernelIffE"),
+                        ("lazy_materialize", "materialize_kernelIffE")):
+        names = [n for n in funcs if tag in n]
+        if len(names) != 1:
+            raise AssertionError(f"{kernel}: {len(names)} SASS functions named like {tag}")
+        out[kernel] = series_loop_counts(funcs[names[0]])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -960,6 +1055,11 @@ def reset_ms(fn, reset, reps: int) -> float:
     return statistics.median(times[1:])
 
 
+def tol_ratio(got: torch.Tensor, want: torch.Tensor, tol: dict = TABLE_TOL) -> float:
+    """Largest |got - want| / (atol + rtol |want|): below 1 is within `tol`."""
+    return ((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max().item()
+
+
 def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in units in the last place between two float32 or
     bfloat16 tensors of one sign pattern (0 where the bits are equal)."""
@@ -989,13 +1089,24 @@ def _lazy_inputs(gen: torch.Generator, moment_dtype: torch.dtype):
     return (table, mu, nu, last), uid, summed, n_unique
 
 
-def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool) -> dict:
+def series_bounds(n_bytes: float, element_terms: int, sass: dict) -> dict:
+    """A lazy series kernel's bound from this run's bytes and element-terms:
+    the instructions counted in its compiled loop and one reciprocal an
+    element and term; beside it the earlier bound of the series with an IEEE
+    division (SERIES_INSTRUCTIONS_IEEE_DIVISION)."""
+    bound, bound_by = bound_ms(n_bytes, 0, sass["instructions_per_term"] * element_terms, n_mufu=element_terms)
+    return {"bound_ms": bound, "bound_by": bound_by, "element_terms": element_terms,
+            "instructions_per_term": sass["instructions_per_term"],
+            "bound_ms_ieee_division": bound_ms(n_bytes, 0, SERIES_INSTRUCTIONS_IEEE_DIVISION * element_terms)[0]}
+
+
+def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool, sass: dict) -> dict:
     """The three lazy AdamW kernels against their plain versions at full
     width: weights TABLE_TOL; moments and last_step equal (float32 moments:
     expf against torch's CUDA exp, measured in ulp); rows outside uid
     bit-unchanged; sentinel slots zero. Times as for the other AdamW kernels;
     materialize, whose work a call uses up, from single calls with the state
-    restored before each."""
+    restored before each. `sass`: lazy_series_sass of the built library."""
     state, uid, summed, n_unique = _lazy_inputs(gen, moment_dtype)
     table, mu, nu, last = state
     row = step_row(LAZY_COUNT)
@@ -1016,19 +1127,19 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
         raise AssertionError("lazy_gather_catch_up: sentinel slots must hold zeros")
     real = uid[:n_unique].long()
     terms = (LAZY_COUNT - 1 - last[real]).clamp(0, 64)
-    # The series' instructions: SERIES_INSTRUCTIONS an element and term, for
-    # elements whose mu is not 0 (the kernels skip the rest).
+    # The series' element-terms: elements whose mu is not 0 (a zero mu adds
+    # nothing; a lane of eight zeros skips the series) times the row's terms.
     live = (mu != 0).sum(1)
-    bound, bound_by = bound_ms(n_unique * (row_bytes + 4) + 4 * uid.numel() + 3 * 4 * uid.numel() * DIM,
-                               0, SERIES_INSTRUCTIONS * int((terms * live[real]).sum()))
+    bounds = series_bounds(n_unique * (row_bytes + 4) + 4 * uid.numel() + 3 * 4 * uid.numel() * DIM,
+                           int((terms * live[real]).sum()), sass["lazy_gather_catch_up"])
     rows["lazy_gather_catch_up"] = {
         "shape": f"V={ROWS} D={DIM} U={uid.numel()} unique={n_unique} {label}",
-        "max_abs_err": (got[0] - want[0]).abs().max().item(), "moment_max_ulp": ulp,
-        "terms_mean": terms.float().mean().item(),
+        "max_abs_err": (got[0] - want[0]).abs().max().item(), "tol_ratio": tol_ratio(got[0], want[0]),
+        "moment_max_ulp": ulp, "terms_mean": terms.float().mean().item(),
         **timings(lambda: gather_catch_up(*state, uid, row, **ADAMW),
                   lambda: gather_catch_up_reference(*state, uid, LAZY_COUNT, **ADAMW), None,
                   calls=10, reps=5, eager_reps=10),
-        "bound_ms": bound, "bound_by": bound_by,
+        **bounds,
     }
 
     # Touched update and scatter, on copies.
@@ -1070,12 +1181,12 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
     ulp = max(max_ulp(kern[1], plain[1]), max_ulp(kern[2], plain[2]))
     if ulp or not torch.equal(kern[3], plain[3]) or not bool(torch.all(kern[3] == LAZY_COUNT)):
         raise AssertionError(f"lazy_materialize: moments ({ulp} ulp) or last_step differ from the plain version's")
-    err = (kern[0] - plain[0]).abs().max().item()
+    err, ratio = (kern[0] - plain[0]).abs().max().item(), tol_ratio(kern[0], plain[0])
     del plain
     lag = (LAZY_COUNT - last).clamp_min(0)
     behind = int((lag > 0).sum())
-    bound, bound_by = bound_ms(2 * behind * row_bytes + 2 * 4 * ROWS, 0,
-                               SERIES_INSTRUCTIONS * int((lag.clamp_max(64) * live).sum()))
+    bounds = series_bounds(2 * behind * row_bytes + 2 * 4 * ROWS, int((lag.clamp_max(64) * live).sum()),
+                           sass["lazy_materialize"])
 
     def restore():
         for dst, src in zip(kern, state):
@@ -1083,14 +1194,14 @@ def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochast
 
     rows["lazy_materialize"] = {
         "shape": f"V={ROWS} D={DIM} rows_behind={behind} {label}",
-        "max_abs_err": err, "moment_max_ulp": ulp,
+        "max_abs_err": err, "tol_ratio": ratio, "moment_max_ulp": ulp,
         "terms_mean": lag.clamp_max(64).float().mean().item(),
         "ms": reset_ms(lambda: materialize(*kern, LAZY_COUNT, stochastic_rounding=stochastic, **ADAMW),
                        restore, reps=10),
         "plain_ms": reset_ms(lambda: materialize_reference(*kern, LAZY_COUNT, stochastic_rounding=stochastic,
                                                            **ADAMW), restore, reps=2),
         "library_ms": None,
-        "bound_ms": bound, "bound_by": bound_by,
+        **bounds,
     }
     return rows
 
@@ -1427,6 +1538,42 @@ def chained_corpus() -> tuple[list, list]:
     return epoch, val
 
 
+def batch_engines() -> dict:
+    """Phase 10: one shuffled epoch of the chained corpus's sessions in
+    batches of 512, assembled on the host by the C++ engine (the default,
+    built with g++ when phase 8 first asked for batches) and by the numpy
+    engine, in turns (native, numpy, numpy, native); ms per batch of each.
+    The two epochs are equal but for the negatives, which the C++ engine
+    draws from its own stream and which exclude every item of their
+    session."""
+    dataset = make_dataset(np.random.default_rng(3), CHAIN_SESSIONS)
+    runs: dict[str, list] = {"native": [], "numpy": []}
+    epochs = {}
+    for engine in ("native", "numpy", "numpy", "native"):
+        t0 = time.perf_counter()
+        epochs[engine] = list(iterate_batches(dataset, TRAIN_BATCH, shuffle=True, seed=0, engine=engine))
+        runs[engine].append(1e3 * (time.perf_counter() - t0) / len(epochs[engine]))
+    a, b = epochs["native"], epochs["numpy"]
+    if len(a) != len(b):
+        raise AssertionError(f"batch engines: {len(a)} native against {len(b)} numpy batches")
+    order = np.random.default_rng(0).permutation(len(dataset))  # iterate_batches' shuffle at seed 0
+    by_bucket = {n: [] for n in BUCKETS}
+    for i in order:
+        by_bucket[pick_bucket(int(dataset.unique_counts[i]), BUCKETS)].append(int(i))
+    chunks = [by_bucket[n][lo:lo + TRAIN_BATCH] for n in BUCKETS for lo in range(0, len(by_bucket[n]), TRAIN_BATCH)]
+    for k, (x, y) in enumerate(zip(a, b)):
+        for f in ("node_ids", "node_mask", "adj", "num_nodes", "targets", "sample_mask"):
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                raise AssertionError(f"batch engines: batch {k} field {f} differs between the engines")
+        for slot in range(int(x.sample_mask.sum())):
+            items = set(dataset.session_items(chunks[k][slot]).tolist())
+            if items & set(x.negatives[slot].tolist()):
+                raise AssertionError(f"batch engines: batch {k} slot {slot} draws a negative from its session")
+    return {"sessions": len(dataset), "batches": len(a),
+            "native_ms_per_batch": runs["native"], "numpy_ms_per_batch": runs["numpy"],
+            "speedup": statistics.median(runs["numpy"]) / statistics.median(runs["native"])}
+
+
 def _state_tensors(model, state: dict) -> list:
     """Everything a sparse step writes: parameters and buffers, the table's
     moments and last_step, the other parameters' AdamW state."""
@@ -1741,6 +1888,11 @@ def main() -> int:
         for line in log_path.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[phase 2] {name}: {line.strip()}")
+    series_sass = lazy_series_sass(_build.library_path("lazy_adamw"))
+    log(f"[phase 2] lazy series loops in SASS: {json.dumps(series_sass)}")
+    for name, counts in series_sass.items():
+        if counts["fchk"]:
+            raise AssertionError(f"{name}: the series loop still holds the IEEE division's check (FCHK): {counts}")
 
     # Phase 3
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1802,7 +1954,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lazy_rows = {}
     for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
-        for name, row in check_lazy_kernels(gen, dtype, stochastic).items():
+        for name, row in check_lazy_kernels(gen, dtype, stochastic, series_sass).items():
             lazy_rows[(name, label)] = row
             log(f"[phase 7] {name} {json.dumps(row)}")
         torch.cuda.empty_cache()
@@ -1836,7 +1988,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[phase 9] chain {json.dumps(chain_timing(chain_epoch))}")
 
-    # Phase 10: one row per kernel and path, every key in every row.
+    # Phase 10
+    log(f"[phase 10] batch engines {json.dumps(batch_engines())}")
+
+    # Phase 11: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),

@@ -24,6 +24,13 @@ __device__ __forceinline__ void cp_async16_or_zero(void* smem_dst, const void* g
                : "memory");
 }
 
+// An 8-byte copy (four bfloat16 values); `.ca`, the only cache mode for
+// fewer than 16 bytes. Both addresses must be 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 template <int kPending>

@@ -6,14 +6,15 @@ induced subgraph becomes a dense boolean adjacency ``adj[b, dst, src]`` over
 the bucket's node slots. ``SessionBatch`` holds the torch tensors one forward
 pass reads, plus the targets, negatives and sample mask when training.
 ``SessionDataset`` pre-indexes the sessions (numpy and the csv module only),
-``iterate_batches`` yields one epoch of host batches (the numpy engine), and
+``iterate_batches`` yields one epoch of host batches (the C++ engine of
+``data/native.py`` where it builds, else the numpy engine), and
 ``make_grad_index`` builds the duplicate-row index of the sparse train step on
 the host. ``chain_iterator`` groups consecutive batches of one node bucket,
 and ``stack_batches`` / ``stack_grad_indices`` stack a group into the [C, ...]
 payload of a chained train or eval step. ``to_device`` copies a batch and its
 index to the card from pinned memory without blocking. The bit-packed
-transfer form of the adjacency and the C++ assembly engine are not ported yet
-(ROADMAP.md, queue A).
+transfer form of the adjacency and assembly on a thread pool (``workers``)
+are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -467,28 +468,51 @@ def _slot_rng(seed: int, batch_index: int, gslot: int) -> np.random.Generator:
     return np.random.default_rng([seed, batch_index, gslot])
 
 
+def _native_batch_seed(seed: int, batch_index: int) -> int:
+    """The C++ engine's seed of batch `batch_index`; the engine derives each
+    slot's SplitMix64 stream from it and the slot's global index."""
+    return int((np.uint64(seed) << np.uint64(20)) + np.uint64(batch_index))
+
+
+def _resolve_engine(engine: str) -> str:
+    """"auto" is the C++ engine where it builds (``native.available()``),
+    else the numpy engine."""
+    if engine == "auto":
+        from gat_recommendation_torch.data import native
+
+        return "native" if native.available() else "numpy"
+    if engine not in ("numpy", "native"):
+        raise ValueError(f"Unknown batching engine: {engine}")
+    return engine
+
+
 def iterate_batches(
     dataset: SessionDataset,
     batch_size: int,
     shuffle: bool = False,
     seed: int = 0,
-    engine: str = "numpy",
+    engine: str = "auto",
     buckets=DEFAULT_BUCKETS,
+    workers: int = 0,
 ):
     """Yield host SessionBatches covering one epoch.
 
     Sessions are grouped by node-count bucket (ascending bucket order, each
     bucket's sessions in epoch-shuffled order); every batch has exactly
-    `batch_size` slots, remainders padded with masked samples. Only the numpy
-    engine is ported (``engine`` "numpy" or "auto"); every batch's content is
-    a pure function of (seed, batch_index, slot).
+    `batch_size` slots, remainders padded with masked samples. ``engine``:
+    "native" (the C++ engine, ``data/native.py``), "numpy", or "auto" (the
+    C++ engine where it builds). Both engines give the same grouping, nodes,
+    adjacency and targets; their negatives come from different streams
+    (SplitMix64 against PCG). Every batch's content is a pure function of
+    (seed, batch_index, slot).
     """
-    if engine == "native":
+    if workers:
         raise NotImplementedError(
-            "the C++ batch assembly engine is not ported yet (ROADMAP.md, queue A); use engine='numpy'"
+            "assembly on a thread pool (workers > 0) is not ported yet (ROADMAP.md, queue A); use workers=0"
         )
-    if engine not in ("numpy", "auto"):
-        raise ValueError(f"Unknown batching engine: {engine}")
+    engine = _resolve_engine(engine)
+    if engine == "native":
+        from gat_recommendation_torch.data import native
     # Invariant: a session truncated to max_session_length events has at most
     # max_session_length - 1 unique context nodes; the largest bucket must
     # hold them or `collate` would silently drop nodes (and their edges).
@@ -507,9 +531,13 @@ def iterate_batches(
         idxs = by_bucket[bucket_n]
         for lo in range(0, len(idxs), batch_size):
             chunk = idxs[lo : lo + batch_size]
-            samples = [
-                dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)
-            ]
-            samples += [None] * (batch_size - len(chunk))
-            yield collate(samples, bucket_n, dataset.num_negatives)
+            if engine == "native":
+                yield native.assemble_batch(dataset, chunk, batch_size, bucket_n,
+                                            _native_batch_seed(seed, batch_index))
+            else:
+                samples = [
+                    dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)
+                ]
+                samples += [None] * (batch_size - len(chunk))
+                yield collate(samples, bucket_n, dataset.num_negatives)
             batch_index += 1

@@ -253,6 +253,14 @@ def _check_terms(name: str, tail_terms: int) -> None:
         raise ValueError(f"{name}: tail_terms must lie in 1..{MAX_TAIL_TERMS}, got {tail_terms}")
 
 
+def _check_eps(name: str, eps: float) -> None:
+    """The kernels' series multiplies by the reciprocal of c2 * sqrt(nu) + eps,
+    which has no special cases (1/0 would be inf where the plain version's
+    0/0 is nan and x/0 inf): it needs eps > 0."""
+    if not eps > 0.0:
+        raise ValueError(f"{name}: the kernel needs eps > 0, got {eps}")
+
+
 def _series_args(lr, b1, b2, weight_decay, tail_terms):
     """The catch-up's scalars for the kernel, and the float32 b^j arrays (to
     be kept alive until the call returns)."""
@@ -284,6 +292,7 @@ def gather_catch_up(table, mu, nu, last_step, uid, count: int | torch.Tensor, *,
         return gather_catch_up_reference(table, mu, nu, last_step, uid, step_block.count_of(count), **hp)
     _check_table("gather_catch_up", table, mu, nu, last_step)
     _check_rows("gather_catch_up", table, uid)
+    _check_eps("gather_catch_up", eps)
     row = step_block.row_on(count, b1=b1, b2=b2, device=table.device)
     out = [torch.empty(uid.shape[0], table.shape[1], device=table.device) for _ in range(3)]
     (ln_b1, ln_b2, a_log), (p1, p2) = _series_args(lr, b1, b2, weight_decay, tail_terms)
@@ -342,6 +351,7 @@ def materialize(table, mu, nu, last_step, count: int, *, lr, b1=0.9, b2=0.999, e
         return materialize_reference(table, mu, nu, last_step, count,
                                      stochastic_rounding=stochastic_rounding, **hp)
     _check_table("materialize", table, mu, nu, last_step)
+    _check_eps("materialize", eps)
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
     (ln_b1, ln_b2, a_log), (p1, p2) = _series_args(lr, b1, b2, weight_decay, tail_terms)
     with torch.cuda.device(table.device):

@@ -34,7 +34,8 @@ evaluation (which the save after it shares) and before the backstop save, so
 checkpoints hold the dense-trajectory table. Checkpoints are
 ``train/checkpoint.py``'s format with the optimizer file.
 
-Not ported yet (ROADMAP.md, queue A): the C++ batch assembly engine.
+Not ported yet (ROADMAP.md, queue A): batch assembly on a thread pool and the
+side-stream prefetch.
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import (  # noqa: E402
     ADAMW, ATTN_GRAD_TOL, ATTN_TOL, DIM, HEADS, LAZY_COUNT, NUM_ITEMS, ROWS, SCORE_TOL, TABLE_TOL, _lazy_inputs,
-    device_ms, nvidia_smi, reset_ms, step_row,
+    device_ms, nvidia_smi, reset_ms, step_row, tol_ratio,
 )
 from gat_recommendation_torch.ops import _build  # noqa: E402
 from gat_recommendation_torch.ops import lazy_adamw  # noqa: E402
@@ -252,11 +252,13 @@ def time_lazy(libs: dict, gen: torch.Generator) -> None:
             row[f"within_tolerance{label}"] = bool(torch.allclose(work[0], want[0], **TABLE_TOL))
             row[f"moments_equal{label}"] = all(torch.equal(a, b) for a, b in zip(work[1:], want[1:]))
             row[f"max_abs_err{label}"] = (work[0] - want[0]).abs().max().item()
+            row[f"tol_ratio{label}"] = tol_ratio(work[0], want[0])
             row[f"materialize_ms{label}"] = reset_ms(
                 lambda: lazy_adamw.materialize(*work, LAZY_COUNT, **ADAMW), lambda: restore(start), 10)
         rows = lazy_adamw.gather_catch_up(*state, uid, LAZY_COUNT, **ADAMW)
         torch.cuda.synchronize()
         row["gather_within_tolerance"] = bool(torch.allclose(rows[0], want_rows[0], **TABLE_TOL))
+        row["gather_tol_ratio"] = tol_ratio(rows[0], want_rows[0])
         row["gather_ms"] = device_ms(lambda: lazy_adamw.gather_catch_up(*state, uid, count_row, **ADAMW), 10, 5)
         print(json.dumps(row), flush=True)
     _build._libs.pop("lazy_adamw")

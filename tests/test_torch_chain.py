@@ -81,8 +81,8 @@ def _port_model(jax_model, params, state):
 
 def _port_batches(ds, epoch=None):
     if epoch is None:
-        return port_batching.iterate_batches(ds, BATCH)
-    return port_batching.iterate_batches(ds, BATCH, shuffle=True, seed=epoch)
+        return port_batching.iterate_batches(ds, BATCH, engine="numpy")
+    return port_batching.iterate_batches(ds, BATCH, shuffle=True, seed=epoch, engine="numpy")
 
 
 def test_chain_grouping_and_stacking_equal_the_jax_packages(corpus):

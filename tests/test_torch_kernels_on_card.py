@@ -16,9 +16,12 @@ hold. AdamW: table rtol 1e-6 / atol 1e-7; the moments, bf16 with stochastic
 rounding included, must be EQUAL bit for bit (the kernel does the plain
 version's float32 operations in the same order, without FMA contraction, and
 draws the same rounding bits). The lazy AdamW row kernels are held to their
-plain versions the same way: weights TABLE_TOL, float32 moments and
-last_step equal (expf and IEEE division on both sides), bf16 moments with
-stochastic rounding equal bit for bit, rows outside uid untouched.
+plain versions the same way: weights TABLE_TOL (the series divides by a
+reciprocal, not by the IEEE division), float32 moments and last_step equal
+(the moments' decay uses expf on both sides and no division), bf16 moments
+with stochastic rounding equal bit for bit, rows outside uid untouched; at
+0, 1, 16 and 64 series terms on every row, and a second gather (its row
+tickets start over) equal to the first.
 
 Each wrapper holds two kernels and chooses by shape: scoring by B (one warp
 per chunk below ``TILE_MIN_BATCH`` sessions, the tiled product from there up),
@@ -581,6 +584,37 @@ def test_lazy_materialize_kernel_matches_plain_and_is_idempotent(cuda, rows, D, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,sr", [(torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
+@pytest.mark.parametrize("terms", [0, 1, 16, 64])
+def test_lazy_series_kernels_match_plain_at_fixed_series_lengths(cuda, terms, mu_dtype, sr):
+    """Every row exactly `terms` steps behind, so the gather and materialize
+    run series of that length (0: the rows are current); over 256 columns
+    (one item a warp) and over 600 (three items, the last ragged)."""
+    for rows, D, U, n_real in ((2048, 256, 1024, 900), (300, 600, 128, 100)):
+        count = 5000
+        table, mu, nu, last, uid, _ = _lazy_inputs(cuda, rows, D, U, n_real, count, mu_dtype, mu_dtype)
+        last.fill_(count - 1 - terms)  # the gather catches up to count - 1
+        got = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
+        want = la.gather_catch_up_reference(table, mu, nu, last, uid, count, **HYPER)
+        again = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)  # the row tickets start over
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+        assert _same_bits(got[1], want[1]) and _same_bits(got[2], want[2])
+        assert all(_same_bits(a, b) for a, b in zip(again, got))
+        assert all(torch.all(g[n_real:] == 0) for g in got)
+        last.fill_(count - terms)
+        after = [[t.clone() for t in (table, mu, nu, last)] for _ in range(2)]
+        la.materialize(*after[0], count, stochastic_rounding=sr, **HYPER)
+        la.materialize_reference(*after[1], count, stochastic_rounding=sr, **HYPER)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(after[0][0], after[1][0], **TABLE_TOL)
+        assert all(_same_bits(a, b) for a, b in zip(after[0][1:], after[1][1:]))
+        assert torch.all(after[0][3] == count)
+        if terms == 0:
+            assert all(_same_bits(a, b) for a, b in zip(after[0][:3], (table, mu, nu)))
+
+
+@pytest.mark.cuda
 def test_lazy_wrappers_reject_what_the_kernels_do_not_take(cuda):
     table, mu, nu, last, uid, summed = _lazy_inputs(cuda, 256, 8, 16, 4, 10, torch.float32, torch.float32)
     rows = la.gather_catch_up(table, mu, nu, last, uid, 10, **HYPER)
@@ -594,6 +628,10 @@ def test_lazy_wrappers_reject_what_the_kernels_do_not_take(cuda):
         la.materialize(table, mu, nu, last, 10, tail_terms=65, **HYPER)
     with pytest.raises(ValueError, match="bfloat16"):
         la.materialize(table, mu, nu, last, 10, stochastic_rounding=True, **HYPER)
+    with pytest.raises(ValueError, match="eps"):
+        la.materialize(table, mu, nu, last, 10, **{**HYPER, "eps": 0.0})
+    with pytest.raises(ValueError, match="eps"):
+        la.gather_catch_up(table, mu, nu, last, uid, 10, **{**HYPER, "eps": 0.0})
 
 
 @pytest.mark.cuda

@@ -108,7 +108,7 @@ def _trajectory(sparse: bool, steps=5, warm=2, lazy=False):
         jax_model, jax_create_loss("dual"), jax_opt)
     opt_state = jax_opt.init(params)
     jax_batches = list(ref_batching.iterate_batches(jax_ds, 16, seed=1, engine="numpy"))
-    port_batches = list(port_batching.iterate_batches(port_ds, 16, seed=1))
+    port_batches = list(port_batching.iterate_batches(port_ds, 16, seed=1, engine="numpy"))
     assert len(jax_batches) >= warm + steps
     for i in range(warm):  # a mid-training state: nonzero moments, moved BatchNorm buffers
         params, state, opt_state, _ = jax_step(params, state, opt_state,
@@ -213,7 +213,7 @@ def test_train_mode_forward_matches_jax_and_takes_gathered_rows():
     jax_model, params, state = _jax_model(seed=2)
     model = _port_model(jax_model, params, state).train()
     a = next(ref_batching.iterate_batches(jax_ds, 16, engine="numpy"))
-    b = next(port_batching.iterate_batches(port_ds, 16))
+    b = next(port_batching.iterate_batches(port_ds, 16, engine="numpy"))
     want, new_state = jax_model.apply(params, state, ref_batching.to_device(a), jax_model.config, train=True)
     got = model(b)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -288,8 +288,8 @@ def test_trainer_epoch_and_evaluate_match_the_jax_trainer(tmp_path):
     model = _port_model(jax_model, params, state)
     pt = port_trainer.Trainer(
         model,
-        lambda epoch: port_batching.iterate_batches(port_ds, 16, shuffle=True, seed=epoch),
-        lambda: port_batching.iterate_batches(port_ds, 16),
+        lambda epoch: port_batching.iterate_batches(port_ds, 16, shuffle=True, seed=epoch, engine="numpy"),
+        lambda: port_batching.iterate_batches(port_ds, 16, engine="numpy"),
         optimizer=FusedEmbeddingAdamW(**HP), loss_fn=create_loss_function(loss),
         sparse_embedding_grads=True, device="cpu")
     pt.init_state(reset_parameters=False)
@@ -354,7 +354,7 @@ def test_unported_options_raise_naming_the_roadmap():
                                   laplacian_k=2, device="cpu")
     _, port_ds = _corpus(seed=10, sessions=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        next(port_batching.iterate_batches(port_ds, 4, engine="native"))
+        next(port_batching.iterate_batches(port_ds, 4, workers=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.create_model("graph_transformer", 50, device="cpu")  # the FFN branch
     with pytest.raises(TypeError, match="update_sparse"):

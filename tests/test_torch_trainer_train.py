@@ -87,8 +87,8 @@ def _port_trainer(setup, out, *, lazy=True, val=True, **kw):
     _, port_ds, _, jax_model, params, state = setup
     trainer = port_trainer.Trainer(
         _port_model(jax_model, params, state),
-        lambda epoch: port_batching.iterate_batches(port_ds, 16, shuffle=True, seed=epoch),
-        (lambda: port_batching.iterate_batches(port_ds, 16)) if val else (lambda: iter(())),
+        lambda epoch: port_batching.iterate_batches(port_ds, 16, shuffle=True, seed=epoch, engine="numpy"),
+        (lambda: port_batching.iterate_batches(port_ds, 16, engine="numpy")) if val else (lambda: iter(())),
         optimizer=FusedEmbeddingAdamW(**HP, lazy=lazy),
         output_dir=out, loss_fn=create_loss_function("dual"), sparse_embedding_grads=True,
         device="cpu", **kw)
