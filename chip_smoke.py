@@ -93,7 +93,20 @@ Phases, each fatal on failure (nothing is caught and carried on):
      the C++ engine (data/native.py, built with g++ at first use; phase 8's
      batches come from it) and by the numpy engine, ms per batch of each;
      the epochs equal but for the negatives.
- 11. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 11. the host pipeline: chained Trainer.train() (chain=CHAIN) from a cold
+     graph cache with the epoch assembled by iterate_batches on 3 threads and
+     transferred by prefetch_to_device on 3 threads (side stream), against
+     the inline epoch (phase 8's batches, one transfer thread): history and
+     state equal bit for bit; the port's bench
+     (gat_recommendation_torch.bench.main_e2e, lazy, BENCH_SESSIONS sessions
+     over the full catalog, slope window BENCH_EPOCHS) at chain 32 and
+     chain 1, each with workers/transfer_workers 3/3 and 0/1, each line with
+     the idle share of one traced epoch and the touched rows (the first run
+     counted: per step 2 attention forward, 2 backward, 1 gather, 1 touched
+     update, 4 node dropout); the latency bench
+     (gat_recommendation_torch.serving.latency_bench, run inside phase 4 on
+     its checkpoint: p50, p95, p99 over 200 requests, counted).
+ 12. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -115,6 +128,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gat_recommendation_torch import bench
 from gat_recommendation_torch.data.batching import (
     SessionDataset,
     iterate_batches,
@@ -154,7 +168,7 @@ from gat_recommendation_torch.ops.session_attention import (
     session_attention_variant,
 )
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
-from gat_recommendation_torch.serving import app
+from gat_recommendation_torch.serving import app, latency_bench
 from gat_recommendation_torch.serving.recommender import Recommender
 from gat_recommendation_torch.serving.validation import validate_request
 from gat_recommendation_torch.train import checkpoint
@@ -223,6 +237,11 @@ RESUME_LOSS_RTOL = 1e-5
 CHAIN, CHAIN_SESSIONS = 10, 13_500
 # Phase 9: chain 1 against a group of TIMED_CHAIN batches of the N = 56 bucket.
 TIMED_CHAIN = 32
+# Phase 11: the port's bench on a corpus of BENCH_SESSIONS (the default run's
+# 120,436 cut), a slope window of BENCH_EPOCHS, chain 32 and chain 1, each with
+# the host pipeline on (assembly and transfer threads) and off.
+BENCH_SESSIONS, BENCH_EPOCHS = 30_000, 2
+BENCH_RUNS = ((32, 3, 3), (32, 0, 1), (1, 3, 3), (1, 0, 1))  # (chain, workers, transfer_workers)
 
 REPLACES = {
     "session_attention": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
@@ -1521,21 +1540,21 @@ def lazy_against_eager(batches: list, loss_fn) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def chained_corpus() -> tuple[list, list]:
-    """One shuffled epoch of batches of 512 from CHAIN_SESSIONS seeded
-    sessions (make_dataset's mix), and the validation batches: the first
-    CHAIN of the smallest node bucket (one chained evaluation) and one of the
+def chained_corpus() -> tuple[SessionDataset, list, list]:
+    """CHAIN_SESSIONS seeded sessions (make_dataset's mix), one shuffled
+    epoch of its batches of 512, and the validation batches: the first CHAIN
+    of the smallest node bucket (one chained evaluation) and one of the
     largest (a single eval step)."""
     t0 = time.perf_counter()
-    epoch = list(iterate_batches(make_dataset(np.random.default_rng(3), CHAIN_SESSIONS), TRAIN_BATCH,
-                                 shuffle=True, seed=0))
+    dataset = make_dataset(np.random.default_rng(3), CHAIN_SESSIONS)
+    epoch = list(iterate_batches(dataset, TRAIN_BATCH, shuffle=True, seed=0))
     counts = {n: sum(b.nodes_per_session == n for b in epoch) for n in BUCKETS}
     if counts[8] < CHAIN + Trainer.SUBCHAIN or not all(counts.values()):
         raise AssertionError(f"the chained corpus's buckets {counts} hold no full group and sub-chain")
     val = [b for b in epoch if b.nodes_per_session == 8][:CHAIN] + [b for b in epoch if b.nodes_per_session == 56][:1]
     log(f"[phase 8] chained corpus: {CHAIN_SESSIONS} sessions, {len(epoch)} batches of {TRAIN_BATCH} "
         f"({counts}) assembled in {time.perf_counter() - t0:.1f} s")
-    return epoch, val
+    return dataset, epoch, val
 
 
 def batch_engines() -> dict:
@@ -1586,21 +1605,27 @@ def _graph_stats(cache) -> dict:
     return {"graphs": len(cache.graphs), "capture_s": cache.capture_seconds, "pool_bytes": cache.pool_bytes}
 
 
-def train_chained_full_width(epoch: list, val: list, workdir: Path) -> dict:
-    """This slice's path: Trainer.train() with chain=CHAIN against the
-    unchained Trainer.train() of the same seed (lazy, dropout 0.1, 2 epochs
-    of `epoch`, an evaluation of `val` after each): the same losses and
-    metrics, the same table, moments, last_step, other parameters' state and
-    BatchNorm buffers, bit for bit. The chained run is counted: per step 2
-    attention forward, 2 backward, 1 gather, 1 touched update; per evaluated
-    batch 2 forward and 1 scoring launch; per evaluation 1 materialize."""
-    loss_fn = create_loss_function("dual")
+def chained_trainer(workdir: Path, chain: int, batches, val: list, transfer_workers: int = 1) -> Trainer:
+    """Phases 8 and 11's Trainer: lazy, dropout 0.1, seed 7, 2 epochs of
+    `batches(epoch)` with an evaluation of `val` after each."""
+    return Trainer(make_training_model(DROPOUT), batches, lambda: iter(val),
+                   optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
+                   output_dir=workdir, max_epochs=2, checkpoint_every=2, loss_fn=create_loss_function("dual"),
+                   seed=7, sparse_embedding_grads=True, chain=chain, transfer_workers=transfer_workers)
 
+
+def train_chained_full_width(epoch: list, val: list, workdir: Path) -> tuple[dict, tuple]:
+    """The chained path: Trainer.train() with chain=CHAIN against the
+    unchained Trainer.train() of the same seed (2 epochs of `epoch`, an
+    evaluation of `val` after each): the same losses and metrics, the same
+    table, moments, last_step, other parameters' state and BatchNorm
+    buffers, bit for bit. The chained run is counted: per step 2 attention
+    forward, 2 backward, 1 gather, 1 touched update; per evaluated batch 2
+    forward and 1 scoring launch; per evaluation 1 materialize. Returns the
+    result and the chained run's history and state (phase 11 compares the
+    pipelined run with them)."""
     def trainer(out: str, chain: int) -> Trainer:
-        return Trainer(make_training_model(DROPOUT), lambda e: iter(epoch), lambda: iter(val),
-                       optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
-                       output_dir=workdir / out, max_epochs=2, checkpoint_every=2, loss_fn=loss_fn,
-                       seed=7, sparse_embedding_grads=True, chain=chain)
+        return chained_trainer(workdir / out, chain, lambda e: iter(epoch), val)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1637,7 +1662,7 @@ def train_chained_full_width(epoch: list, val: list, workdir: Path) -> dict:
         "train_wall_s_unchained": plain_s, "train_wall_s_chained": chained_s,
         "train_graphs": _graph_stats(chained._chained_step.graphs),
         "eval_graphs": _graph_stats(chained._chained_eval.graphs),
-    }
+    }, (got, chained.chained_dispatches, _state_tensors(chained.model, chained.opt_state))
 
 
 def graph_steps_against_eager(batches: list, lazy: bool, groups: list) -> dict:
@@ -1679,6 +1704,79 @@ def graph_steps_against_eager(batches: list, lazy: bool, groups: list) -> dict:
     torch.cuda.empty_cache()
     return {"lazy": lazy, "groups": groups, "steps": sum(groups), "losses": got.tolist(),
             "state_tensors_equal": len(got_state), "launches": got_launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the host pipeline (pooled assembly, side-stream prefetch), the benches
+# ---------------------------------------------------------------------------
+
+
+def pipelined_against_inline(dataset: SessionDataset, val: list, inline: tuple, workdir: Path) -> dict:
+    """Phase 8's chained Trainer.train() once more from a new Trainer (a cold
+    graph cache: the captures happen while the prefetch thread transfers),
+    the epoch now assembled by iterate_batches on 3 threads from the dataset
+    phase 8's batches came from and transferred on 3 threads: history and
+    the whole state equal phase 8's inline run (its list of batches, one
+    transfer thread) bit for bit."""
+    want, want_dispatches, want_state = inline
+    t0 = time.perf_counter()
+    piped = chained_trainer(workdir, CHAIN, lambda e: iterate_batches(
+        dataset, TRAIN_BATCH, shuffle=True, seed=0, workers=3), val, transfer_workers=3)
+    got = piped.train()
+    seconds = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"pipelined train() differs: {got} vs {want}")
+    pairs = list(zip(_state_tensors(piped.model, piped.opt_state), want_state))
+    if len(pairs) < 10 or not all(_same_bits(a, b) for a, b in pairs):
+        raise AssertionError("pipelined train() left a different state than the inline one")
+    if piped.chained_dispatches != want_dispatches:
+        raise AssertionError(f"chained dispatches {piped.chained_dispatches} against {want_dispatches}")
+    return {"chain": CHAIN, "workers": 3, "transfer_workers": 3, "train_loss": got["train_loss"],
+            "state_tensors_equal": len(pairs), "chained_dispatches": piped.chained_dispatches,
+            "train_wall_s_pipelined": seconds, "train_graphs": _graph_stats(piped._chained_step.graphs)}
+
+
+def bench_runs() -> tuple[list, dict]:
+    """gat_recommendation_torch.bench.main_e2e, lazy, on BENCH_SESSIONS
+    sessions over the full catalog, for each of BENCH_RUNS, each with one
+    traced epoch (the device's idle share) and the touched-row statistics.
+    The first run is the counted path: per step 2 attention forward and 2
+    backward, 1 gather, 1 touched update, 4 node dropout launches."""
+    results, launches = [], None
+    for chain, workers, transfer_workers in BENCH_RUNS:
+        reset_launch_counts()
+        result = bench.main_e2e(BENCH_SESSIONS, workers, BENCH_EPOCHS, chain, lazy=True,
+                                transfer_workers=transfer_workers, profile=True)
+        detail = result["_detail"]
+        steps = detail["steps_per_epoch"] * (2 * BENCH_EPOCHS + 4)  # warm-up, short, long, traced
+        if launches is None:
+            launches = expect_launches(
+                f"bench chain {chain}", session_attention=2 * steps, session_attention_backward=2 * steps,
+                lazy_gather_catch_up=steps, lazy_touched_update=steps, node_dropout=4 * steps)
+        if not (np.isfinite(result["value"]) and result["value"] > 0 and detail["steps_per_epoch"] > 0):
+            raise AssertionError(f"bench chain {chain}: {result}")
+        results.append(result)
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+def serving_latency(workdir: Path) -> tuple[dict, dict]:
+    """gat_recommendation_torch.serving.latency_bench on phase 4's checkpoint
+    and graph (full width): 200 requests of 2 .. 11 items at k = 10, after
+    the Recommender's warm-up of one request per bucket. Counted: 2
+    attention forward and 1 scoring launch a request, none of them through
+    the batch kernels."""
+    reset_launch_counts()
+    results = latency_bench.run(workdir / "ckpt", workdir / "graph_edges.csv", device="cuda")
+    exact = results["exact"]
+    n = exact["n"] + len(BUCKETS)
+    launches = launch_counts()
+    want = {**dict.fromkeys(launches, 0), "session_attention": 2 * n, "score_chunkmax": n}
+    if launches != want:
+        raise AssertionError(f"latency bench launch counts {launches}, want {want}")
+    if exact["n"] != 200 or not 0 < exact["p50"] <= exact["p95"] <= exact["p99"] < float("inf"):
+        raise AssertionError(f"latency bench percentiles {exact}")
+    return results, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1917,6 +2015,7 @@ def main() -> int:
     # Phase 4
     with tempfile.TemporaryDirectory() as tmp:
         served = serve_full_width(Path(tmp))
+        latency, latency_launches = serving_latency(Path(tmp))
     profiled = served.pop("profile")
     log(f"[phase 4] {json.dumps(served)}")
 
@@ -1971,9 +2070,9 @@ def main() -> int:
     log(f"[phase 8] lazy {json.dumps(lazy_trained)}")
     lazy_launches = lazy_trained["launches"]
     torch.cuda.empty_cache()
-    chain_epoch, chain_val = chained_corpus()
+    chain_dataset, chain_epoch, chain_val = chained_corpus()
     with tempfile.TemporaryDirectory() as tmp:
-        chained_trained = train_chained_full_width(chain_epoch, chain_val, Path(tmp))
+        chained_trained, chained_run = train_chained_full_width(chain_epoch, chain_val, Path(tmp))
     log(f"[phase 8] chained {json.dumps(chained_trained)}")
     torch.cuda.empty_cache()
     replay = graph_steps_against_eager([by_bucket[56][0]], lazy=True, groups=[1, 1])
@@ -1991,7 +2090,22 @@ def main() -> int:
     # Phase 10
     log(f"[phase 10] batch engines {json.dumps(batch_engines())}")
 
-    # Phase 11: one row per kernel and path, every key in every row.
+    # Phase 11
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        piped = pipelined_against_inline(chain_dataset, chain_val, chained_run, Path(tmp))
+    del chained_run
+    log(f"[phase 11] pipelined against inline train() {json.dumps(piped)}")
+    torch.cuda.empty_cache()
+    bench_results, bench_launches = bench_runs()
+    for result in bench_results:
+        detail = result.pop("_detail")
+        log(f"[phase 11] bench {json.dumps(result)}")
+        log(f"[phase 11] bench detail {json.dumps(detail)}")
+    log(f"[phase 11] latency bench {json.dumps(latency)}")
+    log(f"[phase 11] launches: bench {json.dumps(bench_launches)}, latency bench {json.dumps(latency_launches)}")
+
+    # Phase 12: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -2018,13 +2132,23 @@ def main() -> int:
         *((name, "training_chained", lazy_rows[(name, "f32")], chained_launches[name])
           for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
         ("node_dropout", "training_chained", dropout_row, chained_launches["node_dropout"]),
+        # The host pipeline's paths: the bench's epochs (chain 32) and the latency bench.
+        ("session_attention", "bench_e2e", train_attn[(56, DROPOUT)]["forward"], bench_launches["session_attention"]),
+        ("session_attention_backward", "bench_e2e", train_attn[(56, DROPOUT)]["backward"],
+         bench_launches["session_attention_backward"]),
+        *((name, "bench_e2e", lazy_rows[(name, "f32")], bench_launches[name])
+          for name in ("lazy_gather_catch_up", "lazy_touched_update")),
+        ("node_dropout", "bench_e2e", dropout_row, bench_launches["node_dropout"]),
+        ("session_attention", "latency_bench", attn[(1, 56)], latency_launches["session_attention"]),
+        ("score_chunkmax", "latency_bench", score, latency_launches["score_chunkmax"]),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
         # Which of a wrapper's two kernels the path ran, by the second counters.
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
-                  "training_chained": chained_launches}[path]
+                  "training_chained": chained_launches, "bench_e2e": bench_launches,
+                  "latency_bench": latency_launches}[path]
         kernels.append({
             "name": name,
             "path": path,

@@ -12,20 +12,27 @@ pass reads, plus the targets, negatives and sample mask when training.
 the host. ``chain_iterator`` groups consecutive batches of one node bucket,
 and ``stack_batches`` / ``stack_grad_indices`` stack a group into the [C, ...]
 payload of a chained train or eval step. ``to_device`` copies a batch and its
-index to the card from pinned memory without blocking. The bit-packed
-transfer form of the adjacency and assembly on a thread pool (``workers``)
-are not ported yet (ROADMAP.md, queue A).
+index to the card from pinned memory without blocking, and
+``prefetch_to_device`` runs such transfers ahead of the consumer on a
+background thread and, on the card, a side stream. The bit-packed transfer
+form of the adjacency is not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import csv
 import dataclasses
+import queue
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from gat_recommendation_torch.device import capture_lock, resolve_device
 
 # Node-count buckets. Sessions are truncated to the last 50 events, so unique
 # context nodes <= 49 < 56; the largest bucket always fits and bigger node
@@ -442,24 +449,142 @@ def chain_iterator(iterator, chain: int):
 
 def to_device(item, device):
     """Copy a host ``SessionBatch``, a ``GradIndex`` (numpy fields) or a tuple
-    of them to `device`. Towards a CUDA device the host tensors are pinned
-    first and the copies do not block the host (``non_blocking=True``); they
-    are ordered on the current stream before any kernel that reads them."""
+    of them to `device`. Towards a CUDA device each host tensor is copied into
+    a pinned block of the caching host allocator (which reuses a block once
+    the copy out of it has finished) and the copies do not block the host
+    (``non_blocking=True``); they are ordered on the current stream before any
+    kernel that reads them. The CUDA calls hold ``capture_lock``, so that a
+    transfer on another thread waits while a CUDA graph is being captured."""
     device = torch.device(device)
-    on_card = device.type == "cuda"
+    if device.type != "cuda":
+        return _copy_to(item, lambda t: t.to(device))
+    with capture_lock:
+        return _copy_to(item, lambda t: (t.pin_memory() if t.device.type == "cpu" else t).to(device, non_blocking=True))
 
-    def move(t: torch.Tensor) -> torch.Tensor:
-        if on_card and t.device.type == "cpu":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=on_card)
 
+def _copy_to(item, move):
     if isinstance(item, GradIndex):
         return GradIndex(*(move(torch.from_numpy(np.ascontiguousarray(a))) for a in item))
     if isinstance(item, SessionBatch):
         return item.map(move)
     if isinstance(item, tuple):
-        return tuple(to_device(part, device) for part in item)
+        return tuple(_copy_to(part, move) for part in item)
     raise TypeError(f"to_device takes a SessionBatch, a GradIndex or a tuple of them, got {type(item)}")
+
+
+def _tensors(item):
+    """Every tensor in a (nested) list or tuple of SessionBatches, GradIndexes
+    and tensors; other leaves (the "chained" tag) hold none."""
+    if isinstance(item, torch.Tensor):
+        yield item
+    elif isinstance(item, SessionBatch):
+        yield from (getattr(item, f.name) for f in dataclasses.fields(item) if getattr(item, f.name) is not None)
+    elif isinstance(item, (tuple, list)):  # GradIndex is a tuple
+        for part in item:
+            yield from _tensors(part)
+
+
+def prefetch_to_device(iterator, size: int = 2, transfer=None, transfer_workers: int = 1, device=None):
+    """Iterate `iterator`, transferring up to `size` items ahead on a
+    background thread, so that host batch assembly and the host-to-device
+    copies overlap the device's work. `transfer(item)` returns the item on
+    `device` (default ``to_device(item, device)``; `device` is ``cuda`` when
+    None, which raises without a CUDA device).
+
+    ``transfer_workers > 1`` runs the transfers on a thread pool behind a
+    queue of futures that keeps the iterator's order. An error in the
+    iterator or in a transfer is raised in the consumer. A consumer that
+    abandons the generator (break, exception, garbage collection) sets a
+    `stop` event that releases the background thread.
+
+    On the card every transfer runs on a side stream, and an event recorded
+    after it orders the consumer's current stream behind the copies before
+    the item is yielded. Each tensor of a yielded item is marked as used by
+    the consumer's stream (``record_stream``), so the caching allocator does
+    not hand its memory to a later transfer while the consumer's kernels
+    still read it.
+    """
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    if on_card and device.index is None:  # the worker threads need the index itself
+        device = torch.device("cuda", torch.cuda.current_device())
+    move = transfer if transfer is not None else (lambda item: to_device(item, device))
+    side = torch.cuda.Stream(device) if on_card else None
+
+    def staged(item):
+        if not on_card:
+            return move(item), None
+        with torch.cuda.stream(side):
+            out = move(item)
+            with capture_lock:
+                done = torch.cuda.Event()
+                done.record(side)
+        return out, done
+
+    def bind_device():
+        if on_card:
+            with capture_lock:
+                torch.cuda.set_device(device)
+
+    q: queue.Queue = queue.Queue(maxsize=size)
+    sentinel = object()
+    error: list[BaseException] = []
+    stop = threading.Event()
+    pool = (concurrent.futures.ThreadPoolExecutor(max_workers=transfer_workers, initializer=bind_device)
+            if transfer_workers > 1 else None)
+
+    def worker():
+        try:
+            bind_device()
+            for item in iterator:
+                # Pool mode: the future is queued; a transfer's error surfaces
+                # at .result() in the consumer.
+                payload = pool.submit(staged, item) if pool else staged(item)
+                while not stop.is_set():
+                    try:
+                        q.put(payload, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # raised again in the consumer's thread
+            error.append(e)
+        finally:
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            payload = q.get()
+            if payload is sentinel:
+                if error:
+                    raise error[0]
+                return
+            out, done = payload.result() if pool else payload
+            if on_card:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(done)
+                for tensor in _tensors(out):
+                    tensor.record_stream(current)
+            yield out
+    finally:
+        # Reached on close() or garbage collection of a part-consumed
+        # generator: release the worker and drop the queued device items.
+        stop.set()
+        while not q.empty():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        if pool:
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 def _slot_rng(seed: int, batch_index: int, gslot: int) -> np.random.Generator:
@@ -505,11 +630,12 @@ def iterate_batches(
     adjacency and targets; their negatives come from different streams
     (SplitMix64 against PCG). Every batch's content is a pure function of
     (seed, batch_index, slot).
+
+    ``workers > 0`` assembles the batches on a thread pool, at most
+    ``2 * workers`` in flight, and yields them in order: the same epoch as
+    ``workers=0``. The C++ engine releases the interpreter lock while it
+    assembles a batch, so its batches are built in parallel.
     """
-    if workers:
-        raise NotImplementedError(
-            "assembly on a thread pool (workers > 0) is not ported yet (ROADMAP.md, queue A); use workers=0"
-        )
     engine = _resolve_engine(engine)
     if engine == "native":
         from gat_recommendation_torch.data import native
@@ -526,18 +652,36 @@ def iterate_batches(
     for i in order:
         by_bucket[pick_bucket(int(dataset.unique_counts[i]), buckets)].append(int(i))
 
-    batch_index = 0
+    schedule = []
     for bucket_n in buckets:
         idxs = by_bucket[bucket_n]
         for lo in range(0, len(idxs), batch_size):
-            chunk = idxs[lo : lo + batch_size]
-            if engine == "native":
-                yield native.assemble_batch(dataset, chunk, batch_size, bucket_n,
-                                            _native_batch_seed(seed, batch_index))
-            else:
-                samples = [
-                    dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)
-                ]
-                samples += [None] * (batch_size - len(chunk))
-                yield collate(samples, bucket_n, dataset.num_negatives)
-            batch_index += 1
+            schedule.append((idxs[lo : lo + batch_size], bucket_n, len(schedule)))
+
+    def build(item) -> SessionBatch:
+        chunk, bucket_n, batch_index = item
+        if engine == "native":
+            return native.assemble_batch(dataset, chunk, batch_size, bucket_n, _native_batch_seed(seed, batch_index))
+        samples = [dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)]
+        samples += [None] * (batch_size - len(chunk))
+        return collate(samples, bucket_n, dataset.num_negatives)
+
+    if workers <= 0:
+        for item in schedule:
+            yield build(item)
+        return
+
+    # A bounded window of batches in flight (an unbounded map would hold the
+    # whole epoch in memory), yielded in schedule order.
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        inflight: collections.deque = collections.deque()
+        try:
+            for item in schedule:
+                inflight.append(ex.submit(build, item))
+                if len(inflight) >= 2 * workers:
+                    yield inflight.popleft().result()
+            while inflight:
+                yield inflight.popleft().result()
+        finally:
+            for f in inflight:
+                f.cancel()

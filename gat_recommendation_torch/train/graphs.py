@@ -15,7 +15,10 @@ the warm-up and copied back after it, and the host's side effects are put
 back as well: the optimizer's count and the wrappers' launch counters. A
 replay adds to each launch counter what the capture counted, so the counters
 count per step run, as in the eager loop. A capture that fails raises: there
-is no eager fallback on the card.
+is no eager fallback on the card. A capture holds ``device.capture_lock``,
+which every host-to-device transfer takes for its CUDA calls, so the prefetch
+thread of an epoch (``data/batching.prefetch_to_device``) pauses while a graph
+is recorded.
 
 The graphs of one cache share one memory pool. That is safe here because a
 cache's graphs never run at once and every graph's output is copied out (or
@@ -30,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from gat_recommendation_torch.device import capture_lock
 from gat_recommendation_torch.ops import (
     embedding_adamw,
     lazy_adamw,
@@ -125,7 +129,9 @@ class GraphCache:
         # them first, so that what capture reserves is the pool's growth.
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        # capture_lock: no transfer on another thread makes a CUDA call while
+        # the capture records (the default "global" capture mode forbids it).
+        with capture_lock, torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             output = self.fn(*inputs)
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
         launches = [after - before for before, after in zip(counters, read_counters())]

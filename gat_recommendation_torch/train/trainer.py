@@ -34,8 +34,13 @@ evaluation (which the save after it shares) and before the backstop save, so
 checkpoints hold the dense-trajectory table. Checkpoints are
 ``train/checkpoint.py``'s format with the optimizer file.
 
-Not ported yet (ROADMAP.md, queue A): batch assembly on a thread pool and the
-side-stream prefetch.
+An epoch's host work (batch assembly, the sparse step's ``GradIndex``,
+stacking a group, the copies to the device) runs ahead of the steps on a
+background thread (``data/batching.prefetch_to_device``, two items ahead,
+``transfer_workers`` threads for the transfers), on the card through a side
+stream; the step seeds and the step block stay on the thread that launches
+the steps, so the epoch is the inline one, bit for bit. ``evaluate`` transfers
+inline.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from gat_recommendation_torch.data.batching import (
     SessionBatch,
     chain_iterator,
     make_grad_index,
+    prefetch_to_device,
     stack_batches,
     stack_grad_indices,
     to_device,
@@ -328,7 +334,8 @@ class Trainer:
     evaluations: the latest checkpoint is written at every such evaluation,
     at an early stop and at the last epoch. ``defer_best`` keeps the best
     state as a device copy and writes ``checkpoint_best`` once at the end
-    (False: at every improvement).
+    (False: at every improvement). ``transfer_workers`` > 1 runs an epoch's
+    transfers on that many threads (``prefetch_to_device``).
     """
 
     def __init__(
@@ -349,6 +356,7 @@ class Trainer:
         chain: int = 1,
         defer_best: bool = True,
         record_hits: bool = False,
+        transfer_workers: int = 1,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -371,6 +379,7 @@ class Trainer:
         self.chain = chain if sparse_embedding_grads else 1
         self.defer_best = defer_best
         self.record_hits = record_hits
+        self.transfer_workers = transfer_workers
         self.current_epoch = 0
         self.best_val_metric = 0.0
         self.patience_counter = 0
@@ -442,17 +451,21 @@ class Trainer:
 
     def train_epoch(self) -> float:
         """One epoch over ``train_batches(current_epoch)``; returns the mean
-        loss. Losses stay on the device until the epoch ends: a readback per
-        step would make the host wait for the card every step. With a chain,
-        full groups go through the chained step with the step seeds the
-        unchained loop would use."""
+        loss. The batches and their transfers come from a background thread
+        two items ahead (``prefetch_to_device``). Losses stay on the device
+        until the epoch ends: a readback per step would make the host wait for
+        the card every step. With a chain, full groups go through the chained
+        step with the step seeds the unchained loop would use."""
         if self._train_step is None:
             self.init_state(reset_parameters=False)
         losses = []
         if self.chain > 1:
+            groups = prefetch_to_device(
+                chain_iterator(self.train_batches(self.current_epoch), self.chain), size=2,
+                transfer=self._transfer_chain, transfer_workers=self.transfer_workers, device=self.device)
             step = 0
-            for group in chain_iterator(self.train_batches(self.current_epoch), self.chain):
-                for entry in self._transfer_chain(group):
+            for entries in groups:
+                for entry in entries:
                     if isinstance(entry[0], str):  # ("chained", batches, gidxs)
                         _, batches, gidxs = entry
                         seeds = [self.step_seed(step + i) for i in range(gidxs.uid.shape[0])]
@@ -464,8 +477,10 @@ class Trainer:
                         losses.append(self._train_step(entry, self.step_seed(step)))
                         step += 1
         else:
-            for step, batch in enumerate(self.train_batches(self.current_epoch)):
-                losses.append(self._train_step(self._transfer(batch), self.step_seed(step)))
+            batches = prefetch_to_device(self.train_batches(self.current_epoch), size=2, transfer=self._transfer,
+                                         transfer_workers=self.transfer_workers, device=self.device)
+            for step, batch in enumerate(batches):
+                losses.append(self._train_step(batch, self.step_seed(step)))
         if not losses:
             return 0.0
         return float(torch.cat([loss.reshape(-1) for loss in losses]).mean())  # the epoch's one readback

@@ -142,8 +142,9 @@ def test_to_device_moves_batches_indexes_and_pairs_and_serving_batches_stay_ligh
 
 def test_engines_and_bucket_extension():
     _, b, _, edges = _datasets(seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        next(port.iterate_batches(b, 8, workers=2))
+    pooled, inline = (list(port.iterate_batches(b, 8, shuffle=True, seed=2, workers=w)) for w in (2, 0))
+    assert len(pooled) == len(inline) > 4
+    assert all(torch.equal(getattr(x, f), getattr(y, f)) for x, y in zip(pooled, inline) for f in BATCH_FIELDS)
     with pytest.raises(ValueError, match="Unknown batching engine"):
         next(port.iterate_batches(b, 8, engine="gpu"))
     native = list(port.iterate_batches(b, 8, engine="native"))

@@ -850,3 +850,78 @@ def test_a_resumed_chained_trainer_equals_an_uninterrupted_one(cuda, tmp_path):
     assert got == want and resumed.chained_dispatches == 2 and resumed.chained_eval_dispatches == 1
     assert all(_same_bits(a, b) for a, b in zip(_everything(resumed.model, resumed.opt_state),
                                                 _everything(straight.model, straight.opt_state)))
+
+
+@pytest.mark.cuda
+def test_side_stream_prefetch_of_full_size_batches_equals_the_host_data(cuda):
+    """Three hundred full-size items (B = 512, N = 56, with their GradIndex)
+    through ``prefetch_to_device`` with three transfer threads: the consumer
+    holds its stream back (a spin kernel) before it reads each item, frees the
+    item at once, and its device checksums must equal the host data's. A
+    read before the side stream's copies land, or an item's memory handed to
+    a later copy while the consumer's stream still reads it, breaks a sum."""
+    from gat_recommendation_torch.data import batching
+
+    rng = np.random.default_rng(9)
+    V, B, N = 466_865, 512, 56
+    hosts = []
+    for _ in range(6):
+        batch = batching.SessionBatch(
+            torch.from_numpy(rng.integers(1, V, (B, N), dtype=np.int32)),
+            torch.from_numpy(rng.random((B, N)) < 0.8), torch.from_numpy(rng.random((B, N, N)) < 0.3),
+            torch.from_numpy(rng.integers(1, N, B, dtype=np.int32)),
+            torch.from_numpy(rng.integers(1, V, B, dtype=np.int32)),
+            torch.from_numpy(rng.integers(1, V, (B, 5), dtype=np.int32)), torch.from_numpy(rng.random(B) < 0.9))
+        hosts.append((batch, batching.make_grad_index(batch)))
+
+    def checksum(item) -> torch.Tensor:
+        return torch.stack([t.to(torch.int64).sum() for t in batching._tensors(item)])
+
+    want = [checksum(batching.to_device(h, "cpu")) for h in hosts]
+    sums = []
+    for item in batching.prefetch_to_device((hosts[i % 6] for i in range(300)), size=4, transfer_workers=3,
+                                            device=cuda):
+        torch.cuda._sleep(1_000_000)  # the consumer's stream lags behind the side stream
+        sums.append(checksum(item))
+        del item
+    got = torch.stack(sums).cpu()
+    assert all(torch.equal(got[i], want[i % 6]) for i in range(300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", [1, 4])
+def test_pipelined_trainer_from_a_cold_graph_cache_equals_the_inline_one(cuda, tmp_path, chain):
+    """``Trainer.train()`` with pooled assembly and three transfer threads,
+    each run starting from a new Trainer (no graph captured yet, so the
+    captures happen while the prefetch thread transfers), equals the run with
+    one transfer thread and assembly on the prefetch thread, bit for bit:
+    history and the whole state (lazy, dropout 0.1, two epochs)."""
+    from gat_recommendation_torch.data import batching
+    from gat_recommendation_torch.models import registry
+    from gat_recommendation_torch.train.losses import create_loss_function
+    from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
+    from gat_recommendation_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(4)
+    lengths = np.clip(rng.geometric(0.25, 3000) + 2, 3, 40)
+    sid = np.repeat(np.arange(3000), lengths)
+    items = rng.integers(1, 2000, int(lengths.sum()))
+    ds = batching.SessionDataset((sid, np.arange(len(sid)), items),
+                                 (rng.integers(1, 2000, 30000), rng.integers(1, 2000, 30000)), num_items=2000)
+
+    def run(out, workers, transfer_workers):
+        model = registry.create_model("graph_transformer_optimized", 2000, embedding_dim=64, hidden_dim=64,
+                                      laplacian_k=4, dropout=0.1, device=cuda,
+                                      generator=torch.Generator(cuda).manual_seed(0))
+        trainer = Trainer(model, lambda e: batching.iterate_batches(ds, 128, shuffle=True, seed=e, workers=workers),
+                          lambda: batching.iterate_batches(ds, 128), optimizer=FusedEmbeddingAdamW(1e-2, lazy=True),
+                          output_dir=tmp_path / out, max_epochs=2, loss_fn=create_loss_function("dual"), seed=5,
+                          sparse_embedding_grads=True, chain=chain, transfer_workers=transfer_workers)
+        return trainer, trainer.train()
+
+    plain, want = run("inline", 0, 1)
+    piped, got = run("pipelined", 3, 3)
+    assert got == want and len(got["train_loss"]) == 2
+    assert (piped.chained_dispatches > 0) == (chain > 1)
+    assert all(_same_bits(a, b) for a, b in zip(_everything(piped.model, piped.opt_state),
+                                                _everything(plain.model, plain.opt_state)))

@@ -140,6 +140,30 @@ def test_default_epoch_equals_the_jax_default_epoch(jax_engine, shuffle, seed):
         _assert_same_batch(w, g)
 
 
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("engine", ["native", "numpy"])
+def test_pooled_assembly_equals_inline_and_the_jax_pooled_epoch(jax_engine, engine, workers):
+    """Assembly on a thread pool (a window of 2 * workers batches in flight,
+    yielded in order) gives the epoch of workers=0, and the JAX package's
+    pooled epoch, batch for batch."""
+    a, b = _datasets(seed=30 + workers)
+    inline = list(port.iterate_batches(b, 16, shuffle=True, seed=workers, engine=engine))
+    pooled = list(port.iterate_batches(b, 16, shuffle=True, seed=workers, engine=engine, workers=workers))
+    want = list(ref.iterate_batches(a, 16, shuffle=True, seed=workers, engine=engine, workers=workers))
+    assert len(pooled) == len(inline) == len(want) > 2 * workers
+    for w, x, y in zip(want, inline, pooled):
+        _assert_same_batch(w, y)
+        assert all(torch.equal(getattr(x, f), getattr(y, f)) for f in BATCH_FIELDS)
+
+
+def test_an_abandoned_pooled_epoch_stops_assembling():
+    _, b = _datasets(seed=5)
+    epoch = port.iterate_batches(b, 8, engine="native", workers=3)
+    first = next(epoch)
+    epoch.close()  # the pool's pending batches are cancelled, its threads joined
+    assert first.batch_size == 8 and first.nodes_per_session == BUCKETS[0]
+
+
 @pytest.mark.parametrize("builds", [True, False])
 def test_auto_resolves_as_in_the_jax_package(monkeypatch, builds):
     monkeypatch.setattr(port_native, "available", lambda: builds)

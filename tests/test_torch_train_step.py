@@ -22,7 +22,7 @@ import pandas as pd
 import pytest
 import torch
 
-from gat_recommendation_torch import convert
+from gat_recommendation_torch import bench, convert
 from gat_recommendation_torch.data import batching as port_batching
 from gat_recommendation_torch.models import registry
 from gat_recommendation_torch.ops import masked as port_masked
@@ -352,9 +352,8 @@ def test_factories_default_to_the_card_and_raise_without_one():
 def test_unported_options_raise_naming_the_roadmap():
     model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
                                   laplacian_k=2, device="cpu")
-    _, port_ds = _corpus(seed=10, sessions=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        next(port_batching.iterate_batches(port_ds, 4, workers=2))
+        bench.main(["--mesh", "1x1"])  # multi-GPU training
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.create_model("graph_transformer", 50, device="cpu")  # the FFN branch
     with pytest.raises(TypeError, match="update_sparse"):
