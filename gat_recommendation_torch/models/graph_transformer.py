@@ -1,12 +1,12 @@
 """Graph Transformer with Laplacian PE (the optimized variant is the serving model).
 
 item emb (+ projected LapPE) -> num_layers x (TransformerConv(beta gate) ->
-masked BatchNorm -> additive residual -> dropout) -> session readout. In train
-mode (``model.train()``) the BatchNorm layers use batch statistics and update
-their running buffers in place, and both dropouts are active, keyed by the
-`seed` the caller passes: an int, or a step's row of the step block
-(``ops/step_block.py``) that holds every layer's two seeds on the device.
-The FFN branch is not ported yet.
+masked BatchNorm -> additive residual -> dropout [-> FFN(GELU) -> residual])
+-> session readout. In train mode (``model.train()``) the BatchNorm layers use
+batch statistics and update their running buffers in place, and the dropouts
+are active, keyed by the `seed` the caller passes: an int, or a step's row of
+the step block (``ops/step_block.py``) that holds every layer's seeds on the
+device (two a layer, four with the FFN).
 """
 
 from __future__ import annotations
@@ -17,11 +17,11 @@ import torch
 from torch import nn
 
 from gat_recommendation_torch.data.batching import SessionBatch
-from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.models import base
-from gat_recommendation_torch.models.layers import TransformerConv
+from gat_recommendation_torch.models.base import MaskedBatchNorm, SessionModel
+from gat_recommendation_torch.models.laplacian_pe import compute_laplacian_pe
+from gat_recommendation_torch.models.layers import FeedForward, TransformerConv
 from gat_recommendation_torch.ops import step_block
-from gat_recommendation_torch.ops.masked import masked_batch_norm
 from gat_recommendation_torch.ops.node_dropout import node_dropout
 
 
@@ -40,44 +40,11 @@ class GraphTransformerConfig:
     ffn_expansion: int = 4
 
 
-class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over the valid node slots (``ops.masked.masked_batch_norm``).
-
-    Parameters ``scale``/``bias`` and buffers ``mean``/``var``/``count`` keep
-    the JAX package's names.
-    """
-
-    def __init__(self, dim: int, device=None):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
-        self.register_buffer("mean", torch.zeros(dim, device=device))
-        self.register_buffer("var", torch.ones(dim, device=device))
-        self.register_buffer("count", torch.zeros((), device=device))
-
-    @torch.no_grad()
-    def reset_parameters(self) -> None:
-        self.scale.fill_(1.0)
-        self.bias.zero_()
-        self.mean.zero_()
-        self.var.fill_(1.0)
-        self.count.zero_()
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return masked_batch_norm(
-            self.scale, self.bias, self.mean, self.var, self.count, x, mask, self.training
-        )
-
-
-class GraphTransformer(nn.Module):
-    """The Graph Transformer as an ``nn.Module`` with ``name`` and ``config``.
-
-    Parameters are allocated on `device` (``cuda`` when None, which raises
-    without a CUDA device; the CPU only for ``device="cpu"``) and drawn from
-    `generator` (a ``torch.Generator`` on that device; seed 0 when omitted).
-    On the "meta" device nothing is drawn: load real tensors with
-    ``load_state_dict(..., assign=True)``, as the serving checkpoint loader does.
-    """
+class GraphTransformer(SessionModel):
+    """The Graph Transformer as an ``nn.Module`` with ``name`` and ``config``
+    (``SessionModel`` says where parameters live and how they are drawn).
+    Each layer takes two seeds from a step row (attention dropout, node
+    dropout), four with the FFN (its two dropouts)."""
 
     def __init__(
         self,
@@ -87,25 +54,15 @@ class GraphTransformer(nn.Module):
         device=None,
         generator: torch.Generator | None = None,
     ):
-        super().__init__()
-        if cfg.use_ffn:
-            raise NotImplementedError(
-                "the FFN branch of the Graph Transformer is not ported yet (ROADMAP.md, queue A)"
-            )
-        if cfg.readout_type not in base.READOUT_TYPES:
-            raise ValueError(f"Unknown readout type: {cfg.readout_type}")
-        device = resolve_device(device)
-        self.name = name
-        self.config = cfg
-        rows = base.padded_rows(cfg.num_items)
-        self.item_embedding = nn.Parameter(torch.empty(rows, cfg.embedding_dim, device=device))
-        self.readout = (
-            nn.Linear(cfg.hidden_dim, 1, device=device) if cfg.readout_type == "attention" else None
-        )
+        super().__init__(cfg, name, device)
+        device = self.item_embedding.device
+        self.seeds_per_layer = 4 if cfg.use_ffn else 2
         self.lap_projection = None
         if cfg.use_laplacian_pe:
             self.lap_projection = nn.Linear(cfg.laplacian_k, cfg.embedding_dim, device=device)
-            self.register_buffer("cached_pe", torch.zeros(rows, cfg.laplacian_k, device=device))
+            self.register_buffer(
+                "cached_pe", torch.zeros(self.item_embedding.shape[0], cfg.laplacian_k, device=device)
+            )
         head_dim = cfg.hidden_dim // cfg.num_heads
         dims = [cfg.embedding_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
         self.convs = nn.ModuleList(
@@ -114,21 +71,31 @@ class GraphTransformer(nn.Module):
         self.batch_norms = nn.ModuleList(
             MaskedBatchNorm(cfg.hidden_dim, device=device) for _ in dims
         )
-        if self.item_embedding.device.type != "meta":
-            if generator is None:
-                generator = torch.Generator(self.item_embedding.device).manual_seed(0)
-            self.reset_parameters(generator)
+        self.ffns = nn.ModuleList(
+            FeedForward(cfg.hidden_dim, cfg.ffn_expansion, device=device) for _ in dims
+        ) if cfg.use_ffn else None
+        self._draw(generator)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from `generator`; BatchNorm starts at identity."""
-        base.init_item_embedding(self.item_embedding, self.config.num_items, generator)
-        if self.readout is not None:
-            base.init_xavier_linear(self.readout, generator)
+    def _reset_layers(self, generator: torch.Generator) -> None:
         if self.lap_projection is not None:
             base.init_xavier_linear(self.lap_projection, generator)
-        for conv, bn in zip(self.convs, self.batch_norms):
+        for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             conv.reset_parameters(generator)
             bn.reset_parameters()
+            if self.ffns is not None:
+                self.ffns[layer].reset_parameters(generator)
+
+    def precompute_pe(self, item_i, item_j) -> None:
+        """Fill ``cached_pe`` in place, on the model's device, with the
+        Laplacian eigenvectors of the co-occurrence graph (item_i[e],
+        item_j[e]) (``models/laplacian_pe.py``, on the host); the padded
+        phantom rows stay zero. Nothing without PE."""
+        if not self.uses_laplacian_pe:
+            return
+        pe = compute_laplacian_pe(item_i, item_j, self.config.num_items, k=self.config.laplacian_k)
+        with torch.no_grad():
+            self.cached_pe.zero_()
+            self.cached_pe[: pe.shape[0]].copy_(torch.from_numpy(pe))
 
     def forward(
         self,
@@ -142,28 +109,27 @@ class GraphTransformer(nn.Module):
         ``batch.node_ids``: the sparse train step gathers every row it touches
         once and differentiates with respect to the rows. `seed` keys the
         train-mode randomness (0 when omitted): an int step seed, from which
-        each layer derives on the host the seeds of its attention dropout and
-        of its node dropout (``mix_seed(seed, layer, 0 / 1)``), or a step's
-        row of the step block holding those seeds on the device.
+        each layer derives on the host its seeds ``mix_seed(seed, layer, j)``
+        (j = 0 attention dropout, 1 node dropout, 2 and 3 the FFN's), or a
+        step's row of the step block holding those seeds on the device.
         """
-        rate = self.config.dropout if self.training else 0.0
-        seed = 0 if seed is None else seed
-        x = self.item_embedding[batch.node_ids] if node_embeddings is None else node_embeddings
+        rate, seed = self._rate_and_seed(seed)
+        x = self._nodes(batch, node_embeddings)
         if self.lap_projection is not None:
             x = x + self.lap_projection(self.cached_pe[batch.node_ids])
         for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             residual = x
-            attention_seed, node_seed = step_block.layer_seeds(seed, layer)
-            x = conv(x, batch.adj, rate, attention_seed if rate > 0.0 else None)
+            seeds = step_block.layer_seeds(seed, layer, self.seeds_per_layer)
+            x = conv(x, batch.adj, rate, seeds[0] if rate > 0.0 else None)
             x = bn(x, batch.node_mask) + residual
-            x = node_dropout(x, rate, node_seed)
-        return base.apply_readout(
-            self.readout, x, batch.node_mask, batch.num_nodes, self.config.readout_type
-        )
+            x = node_dropout(x, rate, seeds[1])
+            if self.ffns is not None:
+                x = self.ffns[layer](x, rate, seeds[2:])
+        return self._pool(x, batch)
 
 
 def create_graph_transformer(num_items: int, *, device=None, generator=None, **kwargs):
-    """Standard factory (its FFN default raises until the FFN branch is ported)."""
+    """Standard factory: 3 layers, 4 heads, the FFN."""
     cfg = GraphTransformerConfig(num_items=num_items, **kwargs)
     return GraphTransformer(cfg, "graph_transformer", device=device, generator=generator)
 

@@ -12,8 +12,14 @@ Fields (``csrc/step_block.cuh`` holds the same layout):
     BC1, BC2          1 - b^count, float32 bit patterns (``bias_denominators``)
     IBC1, IBC2        1 / (1 - b^count), float32 bit patterns (``bias_corrections``)
     SEED_MU, SEED_NU  the moments' stochastic-rounding seeds (``moment_seed``)
-    then per layer    the attention-dropout seed ``mix_seed(step_seed, layer, 0)``
-                      and the node-dropout seed ``mix_seed(step_seed, layer, 1)``
+    then per layer    the model's ``seeds_per_layer`` dropout seeds
+                      ``mix_seed(step_seed, layer, j)``, j = 0 .. seeds_per_layer - 1
+
+A model states how many seeds a layer takes and what each keys: the Graph
+Transformer and GAT 2 (j = 0 the attention dropout, j = 1 the node dropout),
+the Graph Transformer with its FFN 4 (j = 2 and 3 the FFN's two dropouts),
+GraphSAGE 1 (its node dropout). So the optimized Graph Transformer's rows are
+[C, 11], as they were before the other models took rows.
 
 Seeds are 64-bit values stored as their two's-complement int64. The
 optimizer's ``state["count"]`` stays a Python int on the host: a group of C
@@ -56,17 +62,14 @@ def moment_seed(count: int, buffer: int) -> int:
     return mix_seed(0x5352, count, buffer)
 
 
-def width(num_layers: int) -> int:
+def width(num_layers: int, seeds_per_layer: int) -> int:
     """The fields of a row for a model of `num_layers` layers."""
-    return LAYER_FIELDS + 2 * num_layers
+    return LAYER_FIELDS + seeds_per_layer * num_layers
 
 
-def attention_seed_field(layer: int) -> int:
-    return LAYER_FIELDS + 2 * layer
-
-
-def node_dropout_seed_field(layer: int) -> int:
-    return LAYER_FIELDS + 2 * layer + 1
+def seed_field(layer: int, j: int, seeds_per_layer: int) -> int:
+    """The field of `layer`'s j-th seed."""
+    return LAYER_FIELDS + seeds_per_layer * layer + j
 
 
 def as_int64(value: int) -> int:
@@ -79,10 +82,11 @@ def _f32_bits(value: float) -> int:
     return int(np.array(value, np.float32).view(np.int32))
 
 
-def host_rows(count0: int, step_seeds, *, b1: float, b2: float, num_layers: int) -> np.ndarray:
+def host_rows(count0: int, step_seeds, *, b1: float, b2: float, num_layers: int,
+              seeds_per_layer: int) -> np.ndarray:
     """int64 [C, width] rows for the C steps after `count0` (counts count0 + 1
     .. count0 + C), the i-th step keyed by ``step_seeds[i]``."""
-    rows = np.zeros((len(step_seeds), width(num_layers)), np.int64)
+    rows = np.zeros((len(step_seeds), width(num_layers, seeds_per_layer)), np.int64)
     for i, seed in enumerate(step_seeds):
         count = count0 + 1 + i
         bc1, bc2 = bias_denominators(count, b1, b2)
@@ -92,8 +96,8 @@ def host_rows(count0: int, step_seeds, *, b1: float, b2: float, num_layers: int)
             as_int64(moment_seed(count, 0)), as_int64(moment_seed(count, 1)),
         ]
         for layer in range(num_layers):
-            rows[i, attention_seed_field(layer)] = as_int64(mix_seed(seed, layer, 0))
-            rows[i, node_dropout_seed_field(layer)] = as_int64(mix_seed(seed, layer, 1))
+            for j in range(seeds_per_layer):
+                rows[i, seed_field(layer, j, seeds_per_layer)] = as_int64(mix_seed(seed, layer, j))
     return rows
 
 
@@ -112,15 +116,17 @@ def to_device(rows: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def build(count0: int, step_seeds, *, b1: float, b2: float, num_layers: int, device) -> torch.Tensor:
+def build(count0: int, step_seeds, *, b1: float, b2: float, num_layers: int, device,
+          seeds_per_layer: int) -> torch.Tensor:
     """``host_rows`` on `device`: int64 [C, width]."""
-    return to_device(host_rows(count0, step_seeds, b1=b1, b2=b2, num_layers=num_layers), device)
+    return to_device(host_rows(count0, step_seeds, b1=b1, b2=b2, num_layers=num_layers,
+                               seeds_per_layer=seeds_per_layer), device)
 
 
 def one_row(count: int, *, b1: float, b2: float, device) -> torch.Tensor:
     """The row of the step after which the count is `count`, with no layer
     seeds: what an AdamW wrapper called with a Python int builds."""
-    return build(count - 1, [0], b1=b1, b2=b2, num_layers=0, device=device)[0]
+    return build(count - 1, [0], b1=b1, b2=b2, num_layers=0, device=device, seeds_per_layer=0)[0]
 
 
 def row_on(count: int | torch.Tensor, *, b1: float, b2: float, device) -> torch.Tensor:
@@ -150,9 +156,10 @@ def seed_on(seed: int | torch.Tensor, device) -> torch.Tensor:
     return to_device(np.array([as_int64(int(seed))], np.int64), device)[0]
 
 
-def layer_seeds(seed, layer: int):
-    """(attention seed, node-dropout seed) of `layer`: ints derived on the host
-    from an int step seed, or 0-dim int64 views of a step row."""
+def layer_seeds(seed, layer: int, seeds_per_layer: int) -> tuple:
+    """The `seeds_per_layer` dropout seeds of `layer`: ints derived on the host
+    from an int step seed (``mix_seed(seed, layer, j)``), or 0-dim int64 views
+    of a step row."""
     if isinstance(seed, torch.Tensor):
-        return seed[attention_seed_field(layer)], seed[node_dropout_seed_field(layer)]
-    return mix_seed(seed, layer, 0), mix_seed(seed, layer, 1)
+        return tuple(seed[seed_field(layer, j, seeds_per_layer)] for j in range(seeds_per_layer))
+    return tuple(mix_seed(seed, layer, j) for j in range(seeds_per_layer))

@@ -1,11 +1,13 @@
-"""Per-request recommender: the Graph Transformer forward plus a full-catalog top-k.
+"""Per-request recommender: the GNN forward plus a full-catalog top-k.
 
-Loads an optimized Graph Transformer checkpoint (``train/checkpoint.py``)
-and serves top-k by running the GNN forward on the session's induced
-co-occurrence subgraph, then scoring the whole catalog with the seen items,
-the padding row 0 and the phantom rows masked to -inf, and selecting the
-exact top-k (``ops/scoring.full_catalog_topk``). On the card the attention
-core and the scoring pass are the CUDA kernels of ``ops/``.
+Loads a checkpoint of any model of the registry (``train/checkpoint.py``;
+the optimized Graph Transformer is the one it is made for, GAT and GraphSAGE
+load by their ``model_name``) and serves top-k by running the GNN forward on
+the session's induced co-occurrence subgraph, then scoring the whole catalog
+with the seen items, the padding row 0 and the phantom rows masked to -inf,
+and selecting the exact top-k (``ops/scoring.full_catalog_topk``). On the
+card the attention core of the Graph Transformer and the scoring pass are
+the CUDA kernels of ``ops/``.
 
 The semantics are those of the JAX package's exact path: FFN checkpoints
 are rejected; the stored config is cross-checked against the table shape;
@@ -41,7 +43,7 @@ def _repo_root() -> Path:
 
 
 class Recommender:
-    """Loads the optimized model and the co-occurrence graph; serves top-k.
+    """Loads a model checkpoint and the co-occurrence graph; serves top-k.
 
     `device` is where the model runs: ``cuda`` when None (raises without a
     CUDA device); the CPU only when the caller passes ``device="cpu"``.

@@ -123,7 +123,8 @@ def next_steps_block(model: nn.Module, optimizer, opt_state: dict, step_seeds, d
     `optimizer` over `model` (counts from ``opt_state["count"] + 1``), on
     `device`."""
     return step_block.build(opt_state["count"], step_seeds, b1=optimizer.b1, b2=optimizer.b2,
-                            num_layers=model.config.num_layers, device=device)
+                            num_layers=model.config.num_layers, seeds_per_layer=model.seeds_per_layer,
+                            device=device)
 
 
 def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:

@@ -143,12 +143,14 @@ def main() -> int:
 
     model, state = runs["step"]["model"], runs["step"]["state"]
     opt = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True)
-    rows = step_block.host_rows(0, [1], b1=opt.b1, b2=opt.b2, num_layers=model.config.num_layers)
+    rows = step_block.host_rows(0, [1], b1=opt.b1, b2=opt.b2, num_layers=model.config.num_layers,
+                                seeds_per_layer=model.seeds_per_layer)
     host_batch = (batches[0], make_grad_index(batches[0]))
     print(json.dumps({
         "one_row_step_block_us": host_us(lambda i: trainer.next_steps_block(model, opt, state, [i], dev)),
         "host_rows_us": host_us(lambda i: step_block.host_rows(i, [i], b1=opt.b1, b2=opt.b2,
-                                                                 num_layers=model.config.num_layers)),
+                                                                 num_layers=model.config.num_layers,
+                                                                 seeds_per_layer=model.seeds_per_layer)),
         "pin_memory_us": host_us(lambda i: torch.from_numpy(rows).pin_memory()),
         "pinned_copy_us": host_us(lambda i: step_block.to_device(rows, dev)),
         "batch_and_index_to_device_us": host_us(lambda i: to_device(host_batch, dev), calls=100),

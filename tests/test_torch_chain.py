@@ -61,20 +61,21 @@ def corpus():
     return _corpus()
 
 
-def _jax_model(seed=0):
-    model = jax_create_model("graph_transformer_optimized", num_items=V, embedding_dim=DIM,
-                             hidden_dim=DIM, laplacian_k=4, dropout=0.0)
+def _jax_model(seed=0, name="graph_transformer_optimized"):
+    kw = {"laplacian_k": 4} if name.startswith("graph_transformer") else {}
+    model = jax_create_model(name, num_items=V, embedding_dim=DIM, hidden_dim=DIM, dropout=0.0, **kw)
     params, state = model.init_params(jax.random.key(seed))
-    pe = np.random.default_rng(seed).normal(0, 1, state["cached_pe"].shape).astype(np.float32)
-    pe[V:] = 0.0
-    state["cached_pe"] = jnp.asarray(pe)
+    if "cached_pe" in state:
+        pe = np.random.default_rng(seed).normal(0, 1, state["cached_pe"].shape).astype(np.float32)
+        pe[V:] = 0.0
+        state["cached_pe"] = jnp.asarray(pe)
     return model, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
 
 
-def _port_model(jax_model, params, state):
-    cfg = dataclasses.asdict(jax_model.config)
+def _port_model(jax_model, params, state, **overrides):
+    cfg = {**dataclasses.asdict(jax_model.config), **overrides}
     model = registry.create_model(jax_model.name, cfg.pop("num_items"), device="cpu", **cfg)
-    weights, buffers = convert.from_jax_params(params, state, dataclasses.asdict(jax_model.config))
+    weights, buffers = convert.from_jax_params(params, state, dataclasses.asdict(jax_model.config), jax_model.name)
     model.load_state_dict({**weights, **buffers})
     return model
 
@@ -170,6 +171,69 @@ def test_chained_run_equals_the_unchained_run_exactly_with_dropout(tmp_path, laz
     assert plain.chained_dispatches == plain.chained_eval_dispatches == 0
     assert got == want  # losses and metrics, as floats
     assert chained.opt_state["count"] == plain.opt_state["count"]
+    for a, b in zip(_state_tensors(chained), _state_tensors(plain), strict=True):
+        assert torch.equal(a, b)
+
+
+def _frozen_conv_bias(jax_model, port_model):
+    """Both packages' GAT with the conv biases held at their initial zeros.
+
+    Each conv bias feeds a BatchNorm at once, so its gradient is zero but for
+    rounding, and AdamW turns that rounding into steps of about lr whose
+    signs differ between the packages; eval mode sees the bias minus the
+    running mean, where near ties in the scores can then order differently.
+    Held at zero (a stopped gradient in JAX, a buffer in the port), the bias
+    takes no step in either package, and every other weight follows the
+    same trajectory."""
+
+    def apply(params, state, batch, cfg, **kw):
+        convs = [{**c, "bias": jax.lax.stop_gradient(c["bias"])} for c in params["convs"]]
+        return jax_model.apply({**params, "convs": convs}, state, batch, cfg, **kw)
+
+    for conv in port_model.convs:
+        bias = conv.bias.detach().clone()
+        assert not bias.any()
+        del conv.bias
+        conv.register_buffer("bias", bias)
+    return dataclasses.replace(jax_model, apply=apply), port_model
+
+
+def test_chained_gat_trainer_matches_the_jax_trainer(corpus, tmp_path):
+    """GAT (3 layers, 4 heads) through the lazy Trainer at chain 4, against
+    the JAX Trainer with the same chain: train losses 1e-5, metrics 1e-9,
+    with the conv biases held at zero in both (``_frozen_conv_bias``)."""
+    jax_model, params, state = _jax_model(name="gat")
+    jax_model, model = _frozen_conv_bias(jax_model, _port_model(jax_model, params, state))
+    port = _port_trainer(corpus[1], model, tmp_path / "port", 4, True)
+    jt = _jax_trainer(corpus, jax_model, tmp_path / "jax", 4, True)
+    params, state = (jax.tree.map(jnp.asarray, t) for t in (params, state))
+    want = jt.train(params, state, jt.optimizer.init(params))
+    got = port.train()
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-5)
+    for g, w in zip(got["val_metrics"], want["val_metrics"], strict=True):
+        assert set(g) == set(w)
+        for key, value in w.items():
+            assert g[key] == pytest.approx(value, abs=1e-9), key
+    assert port.chained_dispatches == jt.chained_dispatches > 0
+    assert port.chained_eval_dispatches == jt.chained_eval_dispatches
+
+
+@pytest.mark.parametrize("name", ["gat", "graph_transformer"])
+def test_chained_run_of_the_other_models_equals_the_unchained_run_with_dropout(tmp_path, name):
+    """GAT (attention and node dropout: 2 seeds a layer) and the standard
+    Graph Transformer (4 seeds a layer, the FFN's two dropouts among them),
+    lazy, dropout 0.1, chain 4 over two node buckets: losses, metrics and
+    the whole state EQUAL to the unchained run's."""
+    _, port_ds = _corpus(sessions=150, max_events=14)
+    jax_model, params, state = _jax_model(name=name)
+    runs = {}
+    for chain in (1, 4):
+        model = _port_model(jax_model, params, state, dropout=0.1)
+        trainer = _port_trainer(port_ds, model, tmp_path / str(chain), chain, True)
+        runs[chain] = (trainer, trainer.train())
+    (plain, want), (chained, got) = runs[1], runs[4]
+    assert chained.chained_dispatches > 0 and chained.chained_eval_dispatches > 0
+    assert got == want
     for a, b in zip(_state_tensors(chained), _state_tensors(plain), strict=True):
         assert torch.equal(a, b)
 

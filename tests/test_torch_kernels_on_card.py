@@ -676,7 +676,8 @@ def test_step_row_entry_points_equal_the_int_path_and_plain(cuda, mu_dtype, nu_d
 
     rows, D, U, n_real, count = 999, 36, 64, 64, 70
     table, mu, nu, last, uid, summed = _lazy_inputs(cuda, rows, D, U, n_real, count, mu_dtype, nu_dtype)
-    block = step_block.build(count - 3, [11, 12, 13], b1=HYPER["b1"], b2=HYPER["b2"], num_layers=2, device=cuda)
+    block = step_block.build(count - 3, [11, 12, 13], b1=HYPER["b1"], b2=HYPER["b2"], num_layers=2, device=cuda,
+                             seeds_per_layer=2)
     row = block[2]  # the step whose count is `count`
     by_row = la.gather_catch_up(table, mu, nu, last, uid, row, **HYPER)
     by_int = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
@@ -709,14 +710,14 @@ def test_step_row_entry_points_equal_the_int_path_and_plain(cuda, mu_dtype, nu_d
     assert all(_same_bits(a, b) for a, b in zip(dense[0][1:], dense[2][1:]))
     # Node dropout reads its layer's seed field; forward and backward.
     x = torch.randn(64, 56, 256, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
-    node = step_block.node_dropout_seed_field(1)
+    node = step_block.seed_field(1, 1, 2)  # the node dropout's seed of a model with 2 seeds a layer
     int_seed = int(block[1, node]) & (2**64 - 1)
     leaves = [x.clone().requires_grad_(True) for _ in range(2)]
     outs = [nd.node_dropout(leaves[0], 0.1, block[1, node]), nd.node_dropout(leaves[1], 0.1, int_seed)]
     grads = [torch.autograd.grad(o, lv, torch.ones_like(o))[0] for o, lv in zip(outs, leaves)]
     assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
     # The attention reads its layer's seed field; forward and backward.
-    seed = step_block.attention_seed_field(1)
+    seed = step_block.seed_field(1, 0, 2)  # the attention's
     q, k, v, adj = _attn_inputs(cuda, 64, 56, 256)
     int_seed = int(block[1, seed]) & (2**64 - 1)
     leaves = [[t.clone().requires_grad_(True) for t in (q, k, v)] for _ in range(2)]
@@ -925,3 +926,40 @@ def test_pipelined_trainer_from_a_cold_graph_cache_equals_the_inline_one(cuda, t
     assert (piped.chained_dispatches > 0) == (chain > 1)
     assert all(_same_bits(a, b) for a, b in zip(_everything(piped.model, piped.opt_state),
                                                 _everything(plain.model, plain.opt_state)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,node_launches,attention", [
+    ("gat", {}, 5, 0), ("graphsage", {"aggregator": "max"}, 3, 0), ("graphsage", {"aggregator": "lstm"}, 3, 0),
+    ("graph_transformer", {"laplacian_k": 4}, 9, 3),
+])
+def test_every_model_runs_its_dropouts_through_the_kernels(cuda, name, kw, node_launches, attention):
+    """A train-mode forward and backward of each model on the card, dropout
+    0.3: every dropout through the node-dropout kernel (forward and backward
+    launches), the Graph Transformer's attention through kernel 1; the output
+    and the table's gradient within 1e-4 of a CPU copy from the same seed
+    (the keep bits are the same; products sum in another order)."""
+    from gat_recommendation_torch.data import batching
+    from gat_recommendation_torch.models import registry
+    from gat_recommendation_torch.ops.node_dropout import node_dropout
+
+    rng = np.random.default_rng(1)
+    lengths = rng.integers(3, 12, 64)
+    sid = np.repeat(np.arange(64), lengths)
+    ds = batching.SessionDataset((sid, np.arange(len(sid)), rng.integers(1, 300, int(lengths.sum()))),
+                                 (rng.integers(1, 300, 3000), rng.integers(1, 300, 3000)), num_items=300)
+    batch = next(batching.iterate_batches(ds, 32))
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        model = registry.create_model(name, 300, embedding_dim=64, hidden_dim=64, dropout=0.3, device="cpu",
+                                      generator=torch.Generator().manual_seed(0), **kw).to(dev).train()
+        fwd, drops = sa.session_attention.launches, node_dropout.launches
+        out = model(batch.to(dev), seed=11)
+        (grad,) = torch.autograd.grad(out.square().sum(), model.item_embedding)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert node_dropout.launches - drops == 2 * node_launches
+            assert sa.session_attention.launches - fwd == attention
+        results.append((out.detach().cpu(), grad.cpu()))
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -71,7 +71,7 @@ def _port_model(jax_model, params, state):
     cfg = dataclasses.asdict(jax_model.config)
     num_items = cfg.pop("num_items")
     model = registry.create_model(jax_model.name, num_items, device="cpu", **cfg)
-    weights, buffers = convert.from_jax_params(params, state, dataclasses.asdict(jax_model.config))
+    weights, buffers = convert.from_jax_params(params, state, dataclasses.asdict(jax_model.config), jax_model.name)
     model.load_state_dict({**weights, **buffers})
     return model.eval()
 
@@ -118,16 +118,18 @@ def test_eval_forward_matches_jax(readout, num_layers):
 
 
 def test_train_mode_forward_and_ffn_are_not_ported():
-    model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8, laplacian_k=2, device="cpu")
-    # The train-mode forward has since been ported: it runs, with batch
-    # statistics and seeded dropout; the FFN branch and the other models still raise.
-    assert model.training
-    out = model(SessionBatch(*(torch.tensor(a) for a in _batch(0, 1, 8))), seed=1)
-    assert out.shape == (1, 8) and torch.isfinite(out).all() and model.batch_norms[0].count > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.create_model("graph_transformer", 50, embedding_dim=8, hidden_dim=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.create_model("gat", 50)
+    """Once the refusal of the FFN, GAT and GraphSAGE; since they were ported
+    every model name builds on the CPU and its train-mode forward runs (batch
+    statistics, seeded dropout). An unknown name still raises."""
+    small = dict(embedding_dim=8, hidden_dim=8, device="cpu")
+    batch = SessionBatch(*(torch.tensor(a) for a in _batch(0, 1, 8)))
+    for name in registry.MODEL_NAMES:
+        extra = dict(laplacian_k=2) if name.startswith("graph_transformer") else {}
+        model = registry.create_model(name, 50, **small, **extra)
+        assert model.training and model.name == name
+        out = model(batch, seed=1)
+        assert out.shape == (1, 8) and torch.isfinite(out).all() and model.batch_norms[0].count > 0
+    assert registry.create_model("graph_transformer", 50, laplacian_k=2, **small).ffns is not None
     with pytest.raises(ValueError):
         registry.create_model("nope", 50)
 
@@ -203,3 +205,76 @@ def test_mask_phantom_matches_jax(num_items):
     want = jax_mask_phantom(jnp.asarray(scores), num_items)
     got = mask_phantom(torch.tensor(scores), num_items)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_ffn_layer_matches_jax():
+    """The FFN branch as the JAX Graph Transformer applies it
+    (``models/graph_transformer.py``: up, exact GELU, down, residual) at dropout 0."""
+    from gat_recommendation_torch.models.layers import FeedForward
+    from gat_recommendation_tpu.models.base import linear, torch_linear_init
+
+    ku, kd = jax.random.split(jax.random.key(4))
+    up, down = (jax.tree.map(np.asarray, p) for p in (torch_linear_init(ku, 32, 128), torch_linear_init(kd, 128, 32)))
+    x = np.random.default_rng(4).standard_normal((3, 8, 32)).astype(np.float32)
+    want = linear(down, jax.nn.gelu(linear(up, jnp.asarray(x)), approximate=False)) + x
+    layer = FeedForward(32, 4, device="cpu")
+    layer.load_state_dict({"up.weight": torch.tensor(up["w"]).T, "up.bias": torch.tensor(up["b"]),
+                           "down.weight": torch.tensor(down["w"]).T, "down.bias": torch.tensor(down["b"])})
+    with torch.no_grad():
+        got = layer(torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("readout", ["mean", "attention"])
+def test_graph_transformer_with_ffn_matches_jax(readout, train):
+    """The standard Graph Transformer (3 layers, 4 heads, the FFN, PE) in eval
+    mode and in train mode at dropout 0, its running statistics moved alike."""
+    from gat_recommendation_tpu.models import graph_transformer as jax_gt
+
+    model = jax_create_model("graph_transformer", num_items=100, embedding_dim=32, hidden_dim=32,
+                             laplacian_k=4, readout_type=readout, dropout=0.0)
+    params, state = model.init_params(jax.random.key(6))
+    params, state = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state)
+    rng = np.random.default_rng(6)
+    for bn_s in state["batch_norms"]:
+        bn_s["mean"] = rng.normal(0, 0.3, bn_s["mean"].shape).astype(np.float32)
+        bn_s["var"] = rng.uniform(0.5, 2.0, bn_s["var"].shape).astype(np.float32)
+    state["cached_pe"] = rng.normal(0, 1, state["cached_pe"].shape).astype(np.float32)
+    node_ids, node_mask, adj, num_nodes = _batch(7)
+    jax_batch = JaxSessionBatch(
+        node_ids=jnp.asarray(node_ids), node_mask=jnp.asarray(node_mask), adj=jnp.asarray(adj),
+        num_nodes=jnp.asarray(num_nodes), targets=jnp.zeros((3,), jnp.int32),
+        negatives=jnp.zeros((3, 1), jnp.int32), sample_mask=jnp.ones((3,), bool))
+    want, new_state = jax_gt.apply(params, state, jax_batch, model.config, train=train)
+
+    port = _port_model(model, params, state).train(train)
+    assert port.seeds_per_layer == 4 and len(port.ffns) == 3
+    with torch.no_grad():
+        got = port(SessionBatch(*(torch.tensor(a) for a in (node_ids, node_mask, adj, num_nodes))), seed=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for layer, bn in enumerate(new_state["batch_norms"]):
+        np.testing.assert_allclose(port.batch_norms[layer].var.numpy(), np.asarray(bn["var"]), **TOL)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("graph_transformer", {"laplacian_k": 4}),
+    ("graph_transformer_optimized", {"laplacian_k": 4, "readout_type": "attention"}),
+    ("gat", {"concat_heads": True}),
+    ("graphsage", {"aggregator": "max"}),
+    ("graphsage", {"aggregator": "lstm", "readout_type": "attention"}),
+])
+def test_convert_fills_every_model_and_counts_its_parameters(name, kw):
+    """``convert.from_jax_params`` under the JAX model's name gives every
+    parameter and buffer of the port's model, shaped as the port's; the
+    registry counts as many parameters as the JAX package's."""
+    from gat_recommendation_tpu.models.registry import count_params as jax_count_params
+
+    model = jax_create_model(name, num_items=100, embedding_dim=16, hidden_dim=16, **kw)
+    params, state = (jax.tree.map(np.asarray, t) for t in model.init_params(jax.random.key(0)))
+    weights, buffers = convert.from_jax_params(params, state, dataclasses.asdict(model.config), model.name)
+    port = _port_model(model, params, state)
+    want = port.state_dict()
+    assert set(weights) | set(buffers) == set(want) and not set(weights) & set(buffers)
+    assert all(t.shape == want[k].shape for k, t in {**weights, **buffers}.items())
+    assert registry.count_params(port) == jax_count_params(params)

@@ -218,3 +218,39 @@ def test_default_device_is_cuda_and_raises_without_it(checkpoints, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_rec.Recommender(port_path, edges, warmup=False)
+
+
+@pytest.mark.parametrize("name,kw", [("gat", {}), ("graphsage", {"aggregator": "mean"})])
+def test_gat_and_graphsage_checkpoints_serve_the_jax_recommenders_top_k(checkpoints, tmp_path, name, kw):
+    """A GAT or GraphSAGE checkpoint (JAX weights carried by convert.py, the
+    BatchNorm statistics perturbed) loads by its model name into the port's
+    Recommender on the CPU and serves the JAX exact path's ids, scores within
+    1e-5, over requests in every bucket."""
+    from gat_recommendation_tpu.models import create_model
+    from gat_recommendation_tpu.serving.recommender import Recommender as JaxRecommender
+    from gat_recommendation_tpu.train import checkpoint as jax_ckpt
+
+    _, _, edges = checkpoints
+    model = create_model(name, num_items=NUM_ITEMS, embedding_dim=16, hidden_dim=16, **kw)
+    params, state = model.init_params(jax.random.key(1))
+    state = jax.tree.map(np.asarray, state)
+    rng = np.random.default_rng(1)
+    for bn in state["batch_norms"]:
+        bn["mean"] = rng.normal(0, 0.3, bn["mean"].shape).astype(np.float32)
+        bn["var"] = rng.uniform(0.5, 2.0, bn["var"].shape).astype(np.float32)
+    meta = {"epoch": 1, "best_val_metric": 0.5, "model_name": name, "model_config": dataclasses.asdict(model.config)}
+    jax_ckpt.save(tmp_path / "jax", params, state, {"dummy": np.zeros(1)}, meta)
+    weights, buffers = convert.from_jax_params(jax.tree.map(np.asarray, params), state, meta["model_config"], name)
+    cfg = dict(meta["model_config"])
+    port_model = registry.create_model(name, cfg.pop("num_items"), device="cpu", **cfg)
+    port_model.load_state_dict({**weights, **buffers})
+    port_ckpt.save(tmp_path / "port", port_model, epoch=1, best_val_metric=0.5)
+
+    jax_r = JaxRecommender(tmp_path / "jax", edges, buckets=BUCKETS, warmup=False, int8_scoring=False)
+    port_r = port_rec.Recommender(tmp_path / "port", edges, buckets=BUCKETS, warmup=False, device="cpu")
+    assert port_r.model.name == name and not port_r.model.training
+    for items, k in _sessions():
+        want_ids, want_scores = jax_r.recommend(JaxRequest(session_items=items, k=k))
+        got_ids, got_scores = port_r.recommend(PortRequest(session_items=items, k=k))
+        assert got_ids == want_ids
+        np.testing.assert_allclose(got_scores, want_scores, rtol=1e-5, atol=1e-5)

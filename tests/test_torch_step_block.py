@@ -44,8 +44,8 @@ def _bits(x: float) -> int:
 @pytest.mark.parametrize("b1,b2", [(0.9, 0.999), (0.8, 0.95)])
 def test_step_block_equals_the_by_value_scalars(b1, b2):
     count0, layers = 37, 3
-    rows = step_block.host_rows(count0, SEEDS, b1=b1, b2=b2, num_layers=layers)
-    assert rows.shape == (len(SEEDS), step_block.width(layers)) and rows.dtype == np.int64
+    rows = step_block.host_rows(count0, SEEDS, b1=b1, b2=b2, num_layers=layers, seeds_per_layer=2)
+    assert rows.shape == (len(SEEDS), step_block.width(layers, 2)) and rows.dtype == np.int64
     for i, seed in enumerate(SEEDS):
         count = count0 + 1 + i
         row = rows[i]
@@ -56,9 +56,9 @@ def test_step_block_equals_the_by_value_scalars(b1, b2):
         for field, buffer in ((step_block.SEED_MU, 0), (step_block.SEED_NU, 1)):
             assert int(row[field]) & (2**64 - 1) == moment_seed(count, buffer)
         for layer in range(layers):
-            att, node = step_block.layer_seeds(torch.from_numpy(row), layer)
-            assert (int(att) & (2**64 - 1), int(node) & (2**64 - 1)) == step_block.layer_seeds(seed, layer)
-            assert step_block.layer_seeds(seed, layer) == (rounding.mix_seed(seed, layer, 0),
+            att, node = step_block.layer_seeds(torch.from_numpy(row), layer, 2)
+            assert (int(att) & (2**64 - 1), int(node) & (2**64 - 1)) == step_block.layer_seeds(seed, layer, 2)
+            assert step_block.layer_seeds(seed, layer, 2) == (rounding.mix_seed(seed, layer, 0),
                                                            rounding.mix_seed(seed, layer, 1))
     one = step_block.one_row(count0 + 1, b1=b1, b2=b2, device="cpu")
     assert torch.equal(one, torch.from_numpy(rows[0, :step_block.LAYER_FIELDS]))
@@ -136,7 +136,7 @@ def _table(seed=0, rows=64, D=8, U=16):
 @pytest.mark.parametrize("count", [1, 7, 250])
 def test_adamw_wrappers_read_a_step_row_as_they_read_the_count(count):
     (table, mu, nu, last), uid, summed = _table()
-    row = step_block.build(count - 1, [3], b1=0.9, b2=0.999, num_layers=2, device="cpu")[0]
+    row = step_block.build(count - 1, [3], b1=0.9, b2=0.999, num_layers=2, device="cpu", seeds_per_layer=2)[0]
     got = lazy_adamw.gather_catch_up(table, mu, nu, last, uid, row, **HYPER)
     want = lazy_adamw.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -175,7 +175,8 @@ def _batches(n=3, seed=5):
 def test_the_model_reads_its_layer_seeds_from_a_step_row():
     model = _model().train()
     batch = _batches(1)[0]
-    block = step_block.build(0, [99], b1=0.9, b2=0.999, num_layers=model.config.num_layers, device="cpu")
+    block = step_block.build(0, [99], b1=0.9, b2=0.999, num_layers=model.config.num_layers, device="cpu",
+                             seeds_per_layer=model.seeds_per_layer)
     want = model(batch, seed=99)
     got = model(batch, seed=block[0])
     assert torch.equal(got, want) and not torch.equal(got, model(batch, seed=98))
@@ -231,3 +232,48 @@ def test_rest_adamw_state_exists_from_init_and_round_trips():
     twin_step = port_trainer.make_sparse_train_step(twin, create_loss_function("dual"), opt, twin_state)
     assert torch.equal(step(batches[1], seed=2), twin_step(batches[1], seed=2))
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), twin.state_dict().values()))
+
+
+def test_the_optimized_graph_transformers_rows_keep_their_layout():
+    """[C, 11] for 2 layers, the fields where they were before other models
+    took rows: 7 leading fields, then per layer the attention-dropout seed
+    mix_seed(seed, layer, 0) and the node-dropout seed mix_seed(seed, layer, 1)."""
+    model = _model()
+    assert model.name == "graph_transformer_optimized" and model.seeds_per_layer == 2
+    opt = FusedEmbeddingAdamW(1e-3)
+    state = opt.init(model)
+    state["count"] = 12
+    block = port_trainer.next_steps_block(model, opt, state, SEEDS[:4], "cpu")
+    assert block.shape == (4, 11) and block.dtype == torch.int64
+    for i, seed in enumerate(SEEDS[:4]):
+        count = 13 + i
+        want = [count, *(_bits(d) for d in bias_denominators(count, 0.9, 0.999)),
+                *(_bits(d) for d in bias_corrections(count, 0.9, 0.999)),
+                step_block.as_int64(moment_seed(count, 0)), step_block.as_int64(moment_seed(count, 1))]
+        for layer in range(2):
+            want += [step_block.as_int64(rounding.mix_seed(seed, layer, j)) for j in (0, 1)]
+        assert block[i].tolist() == want
+
+
+@pytest.mark.parametrize("name,kw,seeds", [
+    ("gat", {}, 2),
+    ("graphsage", {"aggregator": "lstm"}, 1),
+    ("graph_transformer", {"laplacian_k": 4}, 4),
+])
+def test_every_model_reads_its_seeds_per_layer_from_a_step_row(name, kw, seeds):
+    """A model states how many seeds a layer takes; its rows are 7 + seeds *
+    layers wide, field 7 + seeds * layer + j holding mix_seed(seed, layer, j),
+    and its train-mode forward from a row EQUALS the one from the int seed."""
+    model = registry.create_model(name, 120, embedding_dim=16, hidden_dim=16, dropout=0.3, device="cpu",
+                                  generator=torch.Generator().manual_seed(1), **kw).train()
+    assert model.seeds_per_layer == seeds
+    opt = FusedEmbeddingAdamW(1e-3)
+    block = port_trainer.next_steps_block(model, opt, opt.init(model), [77], "cpu")
+    assert block.shape == (1, step_block.width(3, seeds)) == (1, 7 + 3 * seeds)
+    for layer in range(3):
+        assert step_block.layer_seeds(77, layer, seeds) == tuple(rounding.mix_seed(77, layer, j) for j in range(seeds))
+        held = step_block.layer_seeds(block[0], layer, seeds)
+        assert [int(t) & (2**64 - 1) for t in held] == list(step_block.layer_seeds(77, layer, seeds))
+    batch = _batches(1)[0]
+    want = model(batch, seed=77)
+    assert torch.equal(model(batch, seed=block[0]), want) and not torch.equal(model(batch, seed=78), want)

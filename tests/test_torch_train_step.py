@@ -7,13 +7,18 @@ steps on the same batches (dropout 0, since the two packages draw different
 random numbers) must agree: loss 1e-5 relative, moments atol 1e-6, weights
 atol 1e-6 (see ``_assert_weights_close`` for the few entries AdamW's division
 amplifies), BatchNorm buffers 1e-5 (float32 on both sides; matmul and
-reduction orders differ between XLA and PyTorch). The lazy optimizer's
-trajectory is held to the same tolerances, its ``last_step`` equal.
+reduction orders differ between XLA and PyTorch). Every parameter is held
+but the few whose gradient is rounding noise (``NOISE_GRADIENT``); a
+BatchNorm running mean after such a bias is held to the bias's own gap. The
+lazy optimizer's trajectory is held to the same tolerances, its
+``last_step`` equal, for every model (GAT, GraphSAGE-lstm and the standard
+Graph Transformer too).
 Dropout is checked statistically and for its seeding. The Trainer's epoch
 loss and recall/NDCG are held against the JAX Trainer's on a tiny corpus.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -53,13 +58,15 @@ def _corpus(seed=0, sessions=80):
             port_batching.SessionDataset((sid, ts, items), edges, num_items=V))
 
 
-def _jax_model(dropout=0.0, seed=0):
-    model = jax_create_model("graph_transformer_optimized", num_items=V, embedding_dim=DIM,
-                             hidden_dim=DIM, laplacian_k=4, dropout=dropout)
+def _jax_model(dropout=0.0, seed=0, name="graph_transformer_optimized", **kw):
+    if name.startswith("graph_transformer"):
+        kw = {"laplacian_k": 4, **kw}
+    model = jax_create_model(name, num_items=V, embedding_dim=DIM, hidden_dim=DIM, dropout=dropout, **kw)
     params, state = model.init_params(jax.random.key(seed))
-    pe = np.random.default_rng(seed).normal(0, 1, state["cached_pe"].shape).astype(np.float32)
-    pe[V:] = 0.0
-    state["cached_pe"] = jnp.asarray(pe)
+    if "cached_pe" in state:
+        pe = np.random.default_rng(seed).normal(0, 1, state["cached_pe"].shape).astype(np.float32)
+        pe[V:] = 0.0
+        state["cached_pe"] = jnp.asarray(pe)
     return model, params, state
 
 
@@ -68,7 +75,7 @@ def _port_model(jax_model, params, state, **overrides):
     model = registry.create_model(jax_model.name, cfg.pop("num_items"), device="cpu", **cfg)
     numpy_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     weights, buffers = convert.from_jax_params(
-        numpy_tree(params), numpy_tree(state), dataclasses.asdict(jax_model.config))
+        numpy_tree(params), numpy_tree(state), dataclasses.asdict(jax_model.config), jax_model.name)
     model.load_state_dict({**weights, **buffers})
     return model
 
@@ -82,7 +89,24 @@ def _assert_weights_close(got, want, name=""):
     assert np.mean(err > 1e-6) <= 5e-4, (name, np.mean(err > 1e-6))
 
 
-def _compare(port_model, opt_state, params, state, jax_opt_state):
+# Parameters whose gradient is zero but for rounding, so that AdamW's
+# m / (sqrt(v) + eps) turns float32 noise into steps of lr: the attention's
+# key bias (the softmax over sources is invariant to it) and a bias that a
+# BatchNorm in train mode follows at once (it subtracts the batch mean):
+# GAT's conv bias, GraphSAGE's lin_l bias.
+NOISE_GRADIENT = re.compile(r"(\.key\.bias|^convs\.\d+\.bias|\.lin_l\.bias)$")
+
+
+def _compare(port_model, opt_state, params, state, jax_opt_state, bias_gap=None):
+    """The table, its moments, count and last_step, the BatchNorm buffers,
+    and every other parameter of the model (as convert maps the JAX tree)
+    but those of NOISE_GRADIENT. The running mean of a BatchNorm whose input
+    carries such a bias takes in that bias's noise: it is an average of the
+    batch means, each shifted by the bias of its step, so it may differ by
+    as much as the bias did at an earlier step and no more. `bias_gap` keeps,
+    per layer, the largest bias difference seen so far (updated here after
+    the checks)."""
+    bias_gap = {} if bias_gap is None else bias_gap
     _assert_weights_close(port_model.item_embedding.detach().numpy(), params["item_embedding"], "table")
     np.testing.assert_allclose(opt_state["emb_mu"].numpy(), np.asarray(jax_opt_state["emb_mu"]), rtol=0, atol=1e-6)
     np.testing.assert_allclose(opt_state["emb_nu"].numpy(), np.asarray(jax_opt_state["emb_nu"]), rtol=0, atol=1e-6)
@@ -91,18 +115,26 @@ def _compare(port_model, opt_state, params, state, jax_opt_state):
         np.testing.assert_array_equal(opt_state["last_step"].numpy(), np.asarray(jax_opt_state["last_step"]))
     for layer, bn in enumerate(state["batch_norms"]):
         for name in ("mean", "var", "count"):
-            np.testing.assert_allclose(getattr(port_model.batch_norms[layer], name).numpy(),
-                                       np.asarray(bn[name]), rtol=1e-5, atol=1e-5, err_msg=name)
-    for layer, conv in enumerate(params["convs"]):
-        for name in ("query", "key", "value", "skip", "beta"):
-            got = getattr(port_model.convs[layer], name).weight.detach().numpy()
-            _assert_weights_close(got, np.asarray(conv[name]["w"]).T, name)
-    _assert_weights_close(port_model.lap_projection.bias.detach().numpy(), params["lap_projection"]["b"])
+            got, want = getattr(port_model.batch_norms[layer], name).numpy(), np.asarray(bn[name])
+            gap = bias_gap.get(layer, 0.0) if name == "mean" else 0.0
+            assert np.all(np.abs(got - want) <= 1e-5 + 1e-5 * np.abs(want) + gap), (name, layer)
+    numpy_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    want, _ = convert.from_jax_params(numpy_tree(params), numpy_tree(state),
+                                      dataclasses.asdict(port_model.config), port_model.name)
+    for name, p in port_model.named_parameters():
+        if name == "item_embedding":
+            continue
+        if not NOISE_GRADIENT.search(name):
+            _assert_weights_close(p.detach().numpy(), want[name].numpy(), name)
+        elif name.startswith("convs."):  # a bias right before the layer's BatchNorm
+            layer = int(name.split(".")[1])
+            bias_gap[layer] = np.maximum(bias_gap.get(layer, 0.0), np.abs(p.detach().numpy() - want[name].numpy()))
+    return bias_gap
 
 
-def _trajectory(sparse: bool, steps=5, warm=2, lazy=False):
+def _trajectory(sparse: bool, steps=5, warm=2, lazy=False, name="graph_transformer_optimized", **kw):
     jax_ds, port_ds = _corpus()
-    jax_model, params, state = _jax_model()
+    jax_model, params, state = _jax_model(name=name, **kw)
     jax_opt = JaxOptimizer(**HP, use_pallas=False, lazy=lazy)
     jax_step = (ref_trainer.make_sparse_train_step if sparse else ref_trainer.make_train_step)(
         jax_model, jax_create_loss("dual"), jax_opt)
@@ -118,11 +150,13 @@ def _trajectory(sparse: bool, steps=5, warm=2, lazy=False):
     port_opt = FusedEmbeddingAdamW(**HP, lazy=lazy)
     port_state = port_opt.load_state(
         port_opt.init(model), model,
-        convert.opt_state_from_jax(jax.tree.map(np.asarray, opt_state), dataclasses.asdict(jax_model.config)))
+        convert.opt_state_from_jax(jax.tree.map(np.asarray, opt_state), dataclasses.asdict(jax_model.config),
+                                   jax_model.name))
     port_step = (port_trainer.make_sparse_train_step if sparse else port_trainer.make_train_step)(
         model, create_loss_function("dual"), port_opt, port_state)
-    _compare(model, port_state, params, state, opt_state)
-    start = model.convs[0].query.weight.detach().clone()
+    bias_gap = _compare(model, port_state, params, state, opt_state)
+    first = next(model.convs[0].parameters())
+    start = first.detach().clone()
     losses = []
     for i in range(warm, warm + steps):
         if lazy:  # catch-up gaps: rows of this batch last written some steps ago
@@ -134,8 +168,8 @@ def _trajectory(sparse: bool, steps=5, warm=2, lazy=False):
         got = port_step(port_batches[i], seed=i)
         assert got.item() == pytest.approx(float(want), rel=1e-5)
         losses.append(got.item())
-        _compare(model, port_state, params, state, opt_state)
-    assert (model.convs[0].query.weight.detach() - start).abs().max() > 1e-3  # it did train
+        _compare(model, port_state, params, state, opt_state, bias_gap)
+    assert (first.detach() - start).abs().max() > 1e-3  # it did train
     return model, port_state, losses
 
 
@@ -174,6 +208,17 @@ def test_lazy_steps_agree_with_eager_steps_of_the_port():
     torch.testing.assert_close(lazy_state["emb_nu"], eager_state["emb_nu"], rtol=1e-3, atol=1e-10)
     assert torch.all(lazy_state["last_step"] == 6) and lazy_state["count"] == 6
     assert torch.all(lazy.item_embedding[0] == 0) and torch.all(lazy_state["emb_mu"][0] == 0)
+
+
+@pytest.mark.parametrize("name,kw", [("gat", {}), ("graphsage", {"aggregator": "lstm"}),
+                                     ("graph_transformer", {})])
+def test_lazy_sparse_steps_of_every_model_reproduce_the_jax_trajectory(name, kw):
+    """GAT (3 layers, 4 heads), GraphSAGE with the LSTM aggregator and the
+    standard Graph Transformer (3 layers, 4 heads, the FFN): five lazy sparse
+    steps from a carried mid-training state, held as the optimized Graph
+    Transformer's are (loss 1e-5 relative, every weight and the moments 1e-6,
+    last_step equal)."""
+    _trajectory(sparse=True, lazy=True, name=name, **kw)
 
 
 def test_opt_state_from_jax_carries_last_step():
@@ -349,12 +394,26 @@ def test_factories_default_to_the_card_and_raise_without_one():
     assert on_meta.item_embedding.device.type == "meta"
 
 
-def test_unported_options_raise_naming_the_roadmap():
+def test_unported_options_raise_naming_the_roadmap(tmp_path):
+    """What still raises: multi-GPU training, the approximate top-k, the
+    Recommender's refusal of an FFN checkpoint (as the JAX Recommender's),
+    an optimizer without a sparse update. The FFN branch, GAT and GraphSAGE,
+    which raised until they were ported, build on the CPU."""
+    from gat_recommendation_torch.ops.scoring import full_catalog_topk
+    from gat_recommendation_torch.serving.recommender import Recommender
+    from gat_recommendation_torch.train import checkpoint
+
     model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
                                   laplacian_k=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bench.main(["--mesh", "1x1"])  # multi-GPU training
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.create_model("graph_transformer", 50, device="cpu")  # the FFN branch
+        full_catalog_topk(torch.zeros(1, 8), model.item_embedding, 5, 50, method="approx")
+    ffn = registry.create_model("graph_transformer", 50, embedding_dim=8, hidden_dim=8, laplacian_k=2, device="cpu")
+    checkpoint.save(tmp_path / "ffn", ffn)
+    with pytest.raises(RuntimeError, match="FFN"):
+        Recommender(tmp_path / "ffn", tmp_path / "no_edges.csv", warmup=False, device="cpu")
+    for name in ("gat", "graphsage"):
+        assert registry.create_model(name, 50, embedding_dim=8, hidden_dim=8, device="cpu").name == name
     with pytest.raises(TypeError, match="update_sparse"):
         port_trainer.make_sparse_train_step(model, create_loss_function("bpr"), object(), {})
