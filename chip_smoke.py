@@ -132,7 +132,33 @@ Phases, each fatal on failure (nothing is caught and carried on):
      optimized Graph Transformer with it against a CPU copy; the port's
      smoke_test_all_models, its main() counted in this process and
      ``python3 -m`` in a child, which must exit 0.
- 13. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 13. the Quickstart on the card, through the port's entry points, in a
+     temporary directory: (a) corpus v3 regenerated from data_refscale/
+     MANIFEST.json by the port's pandas-free pipeline (scripts.data.
+     regen_refscale.generate; seconds a stage; the six CSV and JSON files
+     must match their sha256, the npz must hold the CSV's arrays; its own
+     sha256 printed); (b) train_baseline.main with the JAX script's defaults
+     (the optimized Graph Transformer at 466,864 items and D = 256, batch 128,
+     eager sparse AdamW, chain 32, 3 / 2 threads, dropout 0.1) for 2 epochs:
+     per step 2 attention forward, 2 backward, 1 sparse AdamW, 4 node
+     dropout, per evaluation batch 2 attention forward and 1 scoring, chained
+     dispatches above 0, seconds an epoch, sessions a second, evaluation, save
+     and PE seconds, and the best val recall@10 at least 0.25 (printed beside
+     the JAX TPU history's 0.2883 and 0.3362); (c) --lazy-adamw --batch-size
+     512 for 2 epochs (per step 1 gather and 1 touched update, per evaluation
+     1 materialize), then --resume to 3 epochs with the first two unchanged;
+     (d) evaluate_local on both output dirs (test.csv, batch 256, counted) and
+     the quality gate on (b)'s checkpoint_best with the repo's thresholds:
+     artifact and latency pass, its metrics equal evaluate_local's within
+     1e-9, exit 0 exactly when every phase passed (after 2 epochs the NDCG
+     floors are not expected to hold: exit 1, with its failures); (e)
+     run_full_pipeline with its defaults: exit 0, all four models passing,
+     kernel 4 once a step; (f) every kernel of those paths against its plain
+     version at that path's own shapes, timed with its bound: the attention
+     at every node bucket the path fills (with the forward kernel each
+     took), the row-sized AdamW kernels at the unique rows of real batches
+     of corpus v3 at the path's batch size.
+ 14. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -144,6 +170,7 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,6 +185,7 @@ import torch
 
 from gat_recommendation_torch import bench, smoke_test_all_models
 from gat_recommendation_torch.data.batching import (
+    UID_SENTINEL,
     SessionDataset,
     iterate_batches,
     pick_bucket,
@@ -166,7 +194,8 @@ from gat_recommendation_torch.data.batching import (
     stack_grad_indices,
     to_device,
 )
-from gat_recommendation_torch.data.graph import build_co_event_graph
+from gat_recommendation_torch.data.csv_io import read_csv
+from gat_recommendation_torch.data.graph import build_co_event_graph, load_edges
 from gat_recommendation_torch.models.base import padded_rows
 from gat_recommendation_torch.models.registry import create_model
 from gat_recommendation_torch.ops import _build, step_block
@@ -198,6 +227,10 @@ from gat_recommendation_torch.ops.session_attention import (
     session_attention_variant,
 )
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
+from gat_recommendation_torch.scripts import evaluate_local
+from gat_recommendation_torch.scripts.data import regen_refscale
+from gat_recommendation_torch.scripts.pipeline import model_quality_gate, run_full_pipeline
+from gat_recommendation_torch.scripts.train import train_baseline
 from gat_recommendation_torch.serving import app, latency_bench
 from gat_recommendation_torch.serving.recommender import Recommender
 from gat_recommendation_torch.serving.validation import validate_request
@@ -212,11 +245,12 @@ from gat_recommendation_torch.train.trainer import (
     make_train_step,
     next_steps_block,
 )
+from gat_recommendation_torch.utils.roofline import H100_SXM
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores (the kernels use no TF32).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+# Published H100 SXM peaks (utils/roofline.H100_SXM): HBM3 bandwidth and
+# float32 outside the tensor cores (the kernels use no TF32).
+HBM_BYTES_PER_S = H100_SXM.hbm_gb_per_s * 1e9
+FP32_FLOP_PER_S = H100_SXM.peak_f32_tflops * 1e12
 # One float32 instruction per lane per clock: the 67 TFLOP/s count an FMA as two.
 FP32_INSTRUCTIONS_PER_S = FP32_FLOP_PER_S / 2
 # 32-bit integer instructions: 64 lanes an SM and clock, half the float32 lanes.
@@ -479,12 +513,20 @@ def lazy_series_sass(library: Path) -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 
+def forward_kernel(staged_before: int) -> str:
+    """Which forward kernel the wrapper's last launch took, by the staged
+    counter read before it."""
+    return "staged" if session_attention.staged_launches > staged_before else "row"
+
+
 def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
     dev = torch.device("cuda")
     q, k, v = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(3))
     adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
     adj[:, 0, :] = False  # an isolated destination in every session
+    staged = session_attention.staged_launches
     got = session_attention(q, k, v, adj, HEADS)
+    kernel = forward_kernel(staged)
     want = session_attention_reference(q, k, v, adj, HEADS)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ATTN_TOL)
@@ -501,6 +543,7 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
     bound, bound_by = bound_ms(n_bytes, n_flops)
     return {
         "shape": f"B={B} N={N} H={HEADS} d={d}",
+        "kernel": kernel,
         "max_abs_err": err,
         **timings(
             lambda: session_attention(q, k, v, adj, HEADS),
@@ -514,39 +557,40 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
     }
 
 
-def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
+def check_scoring(gen: torch.Generator, B: int = 1, num_items: int = NUM_ITEMS, dim: int = DIM) -> dict:
     """B = 1 with an exclusion mask is the serving call; B = 512 without one
-    is the eval step's, which is also checked once with a [B, V] mask."""
+    is the eval step's, which is also checked once with a [B, V] mask. Full
+    width unless `num_items` and `dim` say otherwise."""
     dev = torch.device("cuda")
-    rows = ROWS
-    table = torch.randn(rows, DIM, device=dev, generator=gen)
+    rows = padded_rows(num_items)
+    table = torch.randn(rows, dim, device=dev, generator=gen)
     table[0] = 0.0
-    table[NUM_ITEMS:] = 0.0
-    sess = torch.randn(B, DIM, device=dev, generator=gen)
+    table[num_items:] = 0.0
+    sess = torch.randn(B, dim, device=dev, generator=gen)
     exclude = None
     if B == 1:
         exclude = torch.zeros(rows, dtype=torch.uint8, device=dev)
-        exclude[torch.randint(1, NUM_ITEMS, (50,), device=dev, generator=gen)] = 1
+        exclude[torch.randint(1, num_items, (50,), device=dev, generator=gen)] = 1
         exclude[0] = 1
-    got = score_chunkmax(sess, table, NUM_ITEMS, exclude)
-    want = score_chunkmax_reference(sess, table, NUM_ITEMS, exclude)
+    got = score_chunkmax(sess, table, num_items, exclude)
+    want = score_chunkmax_reference(sess, table, num_items, exclude)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **SCORE_TOL)
     finite = torch.isfinite(want[0])
     err = max((g[torch.isfinite(w)] - w[torch.isfinite(w)]).abs().max().item() for g, w in zip(got, want))
     s_got, i_got = select_topk(*got, 20)
-    s_want, _ = dense_topk(sess, table, 20, NUM_ITEMS, exclude)
+    s_want, _ = dense_topk(sess, table, 20, num_items, exclude)
     torch.testing.assert_close(s_got, s_want, **SCORE_TOL)
-    n_excluded = 0 if exclude is None else int(exclude[:NUM_ITEMS].sum())
-    if int(finite.sum()) != B * (NUM_ITEMS - n_excluded):
+    n_excluded = 0 if exclude is None else int(exclude[:num_items].sum())
+    if int(finite.sum()) != B * (num_items - n_excluded):
         raise AssertionError("phantom and excluded columns must be -inf, all others finite")
 
     if B > 1:
         masked = torch.rand(B, rows, device=dev, generator=gen) < 0.01
         masked[B - 1, 64:96] = True  # one whole chunk excluded
-        got_m = score_chunkmax(sess, table, NUM_ITEMS, masked)
-        want_m = score_chunkmax_reference(sess, table, NUM_ITEMS, masked)
+        got_m = score_chunkmax(sess, table, num_items, masked)
+        want_m = score_chunkmax_reference(sess, table, num_items, masked)
         torch.cuda.synchronize()
         for g, w in zip(got_m, want_m):
             torch.testing.assert_close(g, w, **SCORE_TOL)
@@ -556,8 +600,8 @@ def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
             raise AssertionError("a chunk with every column excluded must have a -inf max")
         del masked, got_m, want_m
 
-    n_bytes = 4 * rows * DIM + 4 * B * DIM + (rows if B == 1 else 0) + B * (4 * rows + 4 * rows // 32)
-    bound, bound_by = bound_ms(n_bytes, 2 * B * rows * DIM)
+    n_bytes = 4 * rows * dim + 4 * B * dim + (rows if B == 1 else 0) + B * (4 * rows + 4 * rows // 32)
+    bound, bound_by = bound_ms(n_bytes, 2 * B * rows * dim)
 
     def library():
         scores = torch.matmul(sess, table.T)
@@ -565,18 +609,18 @@ def check_scoring(gen: torch.Generator, B: int = 1) -> dict:
 
     depth = dict(calls=20, reps=10, eager_reps=30 if B == 1 else 10)
     return {
-        "shape": f"B={B} V={rows} D={DIM}",
+        "shape": f"B={B} V={rows} D={dim}",
         "max_abs_err": err,
         **timings(
-            lambda: score_chunkmax(sess, table, NUM_ITEMS, exclude),
-            lambda: score_chunkmax_reference(sess, table, NUM_ITEMS, exclude),
+            lambda: score_chunkmax(sess, table, num_items, exclude),
+            lambda: score_chunkmax_reference(sess, table, num_items, exclude),
             library,
             **depth,
         ),
         "bound_ms": bound,
         "bound_by": bound_by,
         "with_selection_eager_ms": eager_ms(
-            lambda: select_topk(*score_chunkmax(sess, table, NUM_ITEMS, exclude), 20), depth["eager_reps"]
+            lambda: select_topk(*score_chunkmax(sess, table, num_items, exclude), 20), depth["eager_reps"]
         ),
     }
 
@@ -844,10 +888,12 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
     adj[:, 0, :] = False  # an isolated destination in every session
     seed = 0x5EED_0000_0000_0001 + N
     results = []
+    staged = session_attention.staged_launches
     for fn in (session_attention, session_attention_reference):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = fn(*leaves, adj, heads, dropout_p, seed)
         results.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
+    kernel = forward_kernel(staged)
     torch.cuda.synchronize()
     torch.testing.assert_close(results[0][0], results[1][0], **ATTN_TOL)
     for got, want in zip(results[0][1:], results[1][1:]):
@@ -863,7 +909,8 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
     d = dim // heads
     shape = f"B={B} N={N} H={heads} d={d} p={dropout_p}"
     fwd_bound, bwd_bound = attention_bounds(B, N, int(adj.sum()), heads, dim)
-    fwd = {"shape": shape, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+    fwd = {"shape": shape, "kernel": kernel, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
+           "bound_by": fwd_bound[1]}
     bwd = {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
 
     qh, kh, vh, doh = (t.view(B, N, heads, d).transpose(1, 2) for t in (q, k, v, dout))
@@ -1009,11 +1056,12 @@ def _fused_adamw_library(w, mu, nu, grad, prepare=None):
     return run
 
 
-def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool) -> dict:
-    """Full width, U = 16384 slots: 12,000 unique rows (row 0 among them, its
-    summed row zeroed as the train step does) and a sentinel tail."""
+def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool,
+                       U: int = 16384, n_unique: int = 12000) -> dict:
+    """Full width, U slots (16,384 unless given): n_unique unique rows (row 0
+    among them, its summed row zeroed as the train step does) and a sentinel
+    tail."""
     dev = torch.device("cuda")
-    U, n_unique = 16384, 12000
     table, mu, nu = _table_state(gen, moment_dtype)
     ids = torch.randperm(NUM_ITEMS - 1, device=dev, generator=gen)[: n_unique - 1] + 1
     uid = torch.full((U,), 2**31 - 1, dtype=torch.int32, device=dev)
@@ -1125,13 +1173,12 @@ def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(bits).long() - b.view(bits).long()).abs().max())
 
 
-def _lazy_inputs(gen: torch.Generator, moment_dtype: torch.dtype):
+def _lazy_inputs(gen: torch.Generator, moment_dtype: torch.dtype, U: int, n_unique: int):
     """Full-width table, moments and last_step (each row LAZY_GAPS steps
     behind LAZY_COUNT - 1; one row in 16 with zero moments, as never
-    touched), U = 16384 slots of 12,000 unique rows with row 0 and a sentinel
+    touched), U slots of n_unique unique rows with row 0 and a sentinel
     tail, and their summed gradients."""
     dev = torch.device("cuda")
-    U, n_unique = 16384, 12000
     table, mu, nu = _table_state(gen, moment_dtype)
     table[0], mu[0], nu[0] = 0.0, 0.0, 0.0
     mu[1::16], nu[1::16] = 0.0, 0.0  # rows never touched: the kernels skip their series
@@ -1158,14 +1205,16 @@ def series_bounds(n_bytes: float, element_terms: int, sass: dict) -> dict:
             "bound_ms_ieee_division": bound_ms(n_bytes, 0, SERIES_INSTRUCTIONS_IEEE_DIVISION * element_terms)[0]}
 
 
-def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool, sass: dict) -> dict:
+def check_lazy_kernels(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool, sass: dict,
+                       U: int = 16384, n_unique: int = 12000) -> dict:
     """The three lazy AdamW kernels against their plain versions at full
-    width: weights TABLE_TOL; moments and last_step equal (float32 moments:
+    width, U slots of n_unique unique rows (16,384 and 12,000 unless given):
+    weights TABLE_TOL; moments and last_step equal (float32 moments:
     expf against torch's CUDA exp, measured in ulp); rows outside uid
     bit-unchanged; sentinel slots zero. Times as for the other AdamW kernels;
     materialize, whose work a call uses up, from single calls with the state
     restored before each. `sass`: lazy_series_sass of the built library."""
-    state, uid, summed, n_unique = _lazy_inputs(gen, moment_dtype)
+    state, uid, summed, n_unique = _lazy_inputs(gen, moment_dtype, U, n_unique)
     table, mu, nu, last = state
     row = step_row(LAZY_COUNT)
     label = f"moments={str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}"
@@ -1324,15 +1373,23 @@ def reset_launch_counts() -> None:
     node_dropout.launches = 0
 
 
-def expect_launches(what: str, **want) -> dict:
-    """`want` names the wrappers' counts; at the train batch every attention
-    forward must be a staged one and every scoring launch a tiled one."""
+def expect_counts(what: str, **want) -> dict:
+    """The wrappers' counts equal `want` (0 where not named); which of a
+    wrapper's two kernels ran (the *_staged and *_tile counts) is not held."""
     got = launch_counts()
-    want = {**dict.fromkeys(got, 0), **want}
-    want["session_attention_staged"] = want["session_attention"]
-    want["score_chunkmax_tile"] = want["score_chunkmax"]
-    if got != want:
+    want = {**{k: 0 for k in got if not k.endswith(("_staged", "_tile"))}, **want}
+    if {k: got[k] for k in want} != want:
         raise AssertionError(f"{what}: launch counts {got}, want {want}")
+    return got
+
+
+def expect_launches(what: str, **want) -> dict:
+    """expect_counts, and at the train batch every attention forward must be
+    a staged one and every scoring launch a tiled one."""
+    got = expect_counts(what, **want)
+    if got["session_attention_staged"] != got["session_attention"] or \
+            got["score_chunkmax_tile"] != got["score_chunkmax"]:
+        raise AssertionError(f"{what}: not every launch took the batch kernel: {got}")
     return got
 
 
@@ -2212,8 +2269,10 @@ SMOKE_ROWS = padded_rows(smoke_test_all_models.NUM_ITEMS)
 
 def with_shapes(row: dict, *others: dict) -> dict:
     """`row` (a kernel's check at a path's main shape) with the shapes of
-    every check of that kernel on the path, their errors and ms."""
-    return {**row, "shapes_checked": [{k: r[k] for k in ("shape", "max_abs_err", "ms")} for r in (row, *others)]}
+    every check of that kernel on the path, their errors and ms, and for the
+    attention forward the kernel each shape took."""
+    return {**row, "shapes_checked": [{k: r[k] for k in ("shape", "kernel", "max_abs_err", "ms") if k in r}
+                                      for r in (row, *others)]}
 
 
 def make_zoo_model(name: str, fields: dict, dropout: float, device=None):
@@ -2435,6 +2494,332 @@ def smoke_entry(child: subprocess.Popen) -> dict:
     return {"rc": child.returncode, "table": stdout.splitlines(), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the Quickstart on the card
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+QUICKSTART_MODEL = "graph_transformer_optimized"  # train_baseline's default
+# The JAX TPU run's validation recall@10 after epochs 1 and 2 with
+# train_baseline's defaults on corpus v3 (docs/EXPERIMENTS.md:44-70): a quality
+# reference, not a speed. The port's 2-epoch run must reach QUICKSTART_RECALL_FLOOR
+# (the popularity baseline is 0.078).
+TPU_HISTORY_RECALL_AT_10 = (0.2883, 0.3362)
+QUICKSTART_RECALL_FLOOR = 0.25
+GATE_METRIC_TOL = 1e-9  # the gate's metrics phase runs evaluate_local's code on the same batches
+EVAL_BATCH, PIPELINE_BATCH, PIPELINE_DIM = 256, 32, 64
+
+
+def _bucket_index(ds: SessionDataset) -> np.ndarray:
+    """Each session's node bucket, as an index into BUCKETS."""
+    return np.minimum(np.searchsorted(BUCKETS, ds.unique_counts), len(BUCKETS) - 1)
+
+
+def batches_per_epoch(ds: SessionDataset, batch_size: int) -> int:
+    """How many batches iterate_batches makes of `ds`: each node bucket's
+    sessions in batches of `batch_size`."""
+    return int(sum(-(-int(n) // batch_size) for n in np.bincount(_bucket_index(ds))))
+
+
+def buckets_filled(*datasets: SessionDataset) -> list[int]:
+    """The node buckets that the datasets' sessions fill, the one with the
+    most sessions first (every batch is padded to the batch size, so these
+    are the N the path's kernels see)."""
+    counts = sum(np.bincount(_bucket_index(ds), minlength=len(BUCKETS)) for ds in datasets)
+    return [BUCKETS[i] for i in np.argsort(-counts, kind="stable") if counts[i]]
+
+
+def quickstart_corpus(workdir: Path) -> dict:
+    """Corpus v3 from MANIFEST.json through the port's pandas-free pipeline;
+    the six text files must match their sha256; the npz (whose compressed
+    bytes depend on the host's zlib) must hold the arrays of the CSV."""
+    manifest = json.loads(regen_refscale.MANIFEST.read_text())
+    log(f"[phase 13] numpy {np.__version__}: regenerating corpus v3 from {manifest['generator_params']}")
+    seconds = regen_refscale.generate(manifest["generator_params"], workdir)
+    bad = regen_refscale.check(manifest, workdir)
+    text = [b for b in bad if not b[0].endswith(".npz")]
+    if text:
+        raise AssertionError(f"regenerated files differ from the manifest: {text}")
+    processed = workdir / "processed"
+    csv_cols = read_csv(processed / "graph_edges.csv", usecols=("item_i", "item_j", "count", "last_ts"))
+    with np.load(processed / "graph_edges.npz") as z:
+        if sorted(z.files) != sorted(csv_cols) or not all(np.array_equal(z[k], csv_cols[k]) for k in z.files):
+            raise AssertionError("graph_edges.npz does not hold the arrays of graph_edges.csv")
+    return {"stage_s": seconds, "numpy": np.__version__, "text_files_matched": 6,
+            "npz_sha256": regen_refscale.sha256(processed / "graph_edges.npz"), "npz_matches_manifest": not bad,
+            "edges": len(csv_cols["item_i"])}
+
+
+def timed_on_card(fn, into: list):
+    """fn, recording the wall seconds of each call, the card drained at both ends."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def train_cli(argv: list[str]) -> dict:
+    """What train_baseline.main(argv) does, through its parse_args, build,
+    initialize and run, in this process: the Trainer kept, its epochs and
+    evaluations and the model's Laplacian PE timed."""
+    kept: dict = {"epoch_s": [], "eval_s": [], "pe_s": []}
+    t0 = time.perf_counter()
+    args = train_baseline.parse_args(argv)
+    model, trainer, edges = train_baseline.build(args)
+    model.precompute_pe = timed_on_card(model.precompute_pe, kept["pe_s"])
+    trainer.train_epoch = timed_on_card(trainer.train_epoch, kept["epoch_s"])
+    trainer.evaluate = timed_on_card(trainer.evaluate, kept["eval_s"])
+    train_baseline.initialize(args, model, trainer, edges)
+    train_baseline.run(args, trainer)
+    kept["wall_s"] = time.perf_counter() - t0
+    kept["trainer"] = trainer
+    return kept
+
+
+def train_summary(kept: dict, train_sessions: int, out: Path) -> dict:
+    trainer = kept["trainer"]
+    history = json.loads((out / QUICKSTART_MODEL / "history.json").read_text())
+    return {
+        "steps": trainer.opt_state["count"],
+        "chained_dispatches": trainer.chained_dispatches,
+        "chained_eval_dispatches": trainer.chained_eval_dispatches,
+        "epoch_s": kept["epoch_s"],
+        "sessions_per_s": [train_sessions / s for s in kept["epoch_s"]],
+        "eval_s": kept["eval_s"],
+        "save_s": {f"{c['which']}@{c['epoch']}": c["seconds"] for c in trainer.checkpoint_log if c["op"] == "save"},
+        "pe_s": kept["pe_s"],
+        "wall_s": kept["wall_s"],
+        "train_loss": history["train_loss"],
+        "val_recall_at_10": [m["recall@10"] for m in history["val_metrics"]],
+        "val_ndcg_at_10": [m["ndcg@10"] for m in history["val_metrics"]],
+    }
+
+
+def quickstart_training(processed: Path, workdir: Path, val_ds: SessionDataset) -> tuple[dict, dict]:
+    """(b) train_baseline with the JAX script's defaults (eager sparse AdamW,
+    batch 128, chain 32, 3 / 2 threads, dropout 0.1) for 2 epochs; (c) the
+    main training path, --lazy-adamw --batch-size 512, 2 epochs, then
+    --resume to 3. Launch counts per step and evaluation batch, the quality
+    floor, the resume."""
+    info = json.loads((processed / "split_info.json").read_text())
+    data = ["--train-sessions", str(processed / "train.csv"), "--val-sessions", str(processed / "val.csv"),
+            "--graph-edges", str(processed / "graph_edges.csv")]
+    out = {}
+
+    reset_launch_counts()
+    kept = train_cli([*data, "--output-dir", str(workdir / "eager"), "--max-epochs", "2"])
+    steps, evals = kept["trainer"].opt_state["count"], 2 * batches_per_epoch(val_ds, 128)
+    launches = expect_counts("quickstart train_baseline (defaults)", session_attention=2 * steps + 2 * evals,
+                             session_attention_backward=2 * steps, sparse_adamw=steps, node_dropout=4 * steps,
+                             score_chunkmax=evals)
+    eager = train_summary(kept, info["train_sessions"], workdir / "eager")
+    del kept
+    if eager["chained_dispatches"] < 1 or eager["chained_eval_dispatches"] < 1:
+        raise AssertionError(f"the default run chained nothing: {eager}")
+    best = max(eager["val_recall_at_10"])
+    if best < QUICKSTART_RECALL_FLOOR:
+        raise AssertionError(f"val recall@10 {eager['val_recall_at_10']}: best {best} < {QUICKSTART_RECALL_FLOOR}")
+    out["train"] = {**eager, "launches": launches, "best_val_recall_at_10": best,
+                    "tpu_history_val_recall_at_10": TPU_HISTORY_RECALL_AT_10}
+    torch.cuda.empty_cache()
+
+    lazy_flags = [*data, "--output-dir", str(workdir / "lazy"), "--lazy-adamw", "--batch-size", "512"]
+    reset_launch_counts()
+    kept = train_cli([*lazy_flags, "--max-epochs", "2"])
+    steps, n_eval = kept["trainer"].opt_state["count"], 2
+    evals = n_eval * batches_per_epoch(val_ds, 512)
+    launches = expect_counts("quickstart train_baseline --lazy-adamw", session_attention=2 * steps + 2 * evals,
+                             session_attention_backward=2 * steps, lazy_gather_catch_up=steps,
+                             lazy_touched_update=steps, lazy_materialize=n_eval, node_dropout=4 * steps,
+                             score_chunkmax=evals)
+    lazy = train_summary(kept, info["train_sessions"], workdir / "lazy")
+    del kept
+    torch.cuda.empty_cache()
+    kept = train_cli([*lazy_flags, "--max-epochs", "3", "--resume"])
+    resumed = json.loads((workdir / "lazy" / QUICKSTART_MODEL / "history.json").read_text())
+    if kept["trainer"].current_epoch != 2 or len(resumed["train_loss"]) != 3:
+        raise AssertionError(f"the resumed run did not go on at epoch 3: {resumed}")
+    if resumed["train_loss"][:2] != lazy["train_loss"] or \
+            [m["recall@10"] for m in resumed["val_metrics"][:2]] != lazy["val_recall_at_10"]:
+        raise AssertionError("the resumed history changed the first two epochs")
+    out["lazy"] = {**lazy, "launches": launches, "resumed_train_loss": resumed["train_loss"],
+                   "resumed_val_recall_at_10": [m["recall@10"] for m in resumed["val_metrics"]],
+                   "resume_steps": kept["trainer"].opt_state["count"] - steps,
+                   "restore_s": [c["seconds"] for c in kept["trainer"].checkpoint_log if c["op"] == "restore"]}
+    del kept
+    torch.cuda.empty_cache()
+    return out, info
+
+
+def quickstart_evaluation(processed: Path, workdir: Path) -> dict:
+    """(d) evaluate_local on both output dirs against test.csv at batch 256,
+    then the quality gate on the default run's checkpoint_best with the repo's
+    thresholds: artifact and latency pass, its metrics equal evaluate_local's,
+    its exit code 0 exactly when every phase passed. Counted."""
+    data = ["--test-sessions", str(processed / "test.csv"), "--graph-edges", str(processed / "graph_edges.csv")]
+    test_batches = batches_per_epoch(evaluate_local.load_test_split(*data[1::2]), EVAL_BATCH)
+    out: dict = {"test_batches": test_batches}
+    for label in ("eager", "lazy"):
+        results_file = workdir / f"evaluation_{label}.json"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if evaluate_local.main([*data, "--outputs-dir", str(workdir / label), "--batch-size", str(EVAL_BATCH),
+                                "--results-file", str(results_file)]) != 0:
+            raise AssertionError(f"evaluate_local on {label} failed")
+        seconds = time.perf_counter() - t0
+        metrics = json.loads(results_file.read_text())[QUICKSTART_MODEL]
+        if "error" in metrics:
+            raise AssertionError(f"evaluate_local on {label}: {metrics['error']}")
+        out[f"eval_{label}"] = {**metrics, "seconds": seconds, "launches": expect_counts(
+            f"evaluate_local {label}", session_attention=2 * test_batches, score_chunkmax=test_batches)}
+
+    gate_file = workdir / "quality_gate_results.json"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = model_quality_gate.main([*data, "--checkpoint", str(workdir / "eager" / QUICKSTART_MODEL / "checkpoint_best"),
+                                  "--thresholds", str(REPO / "configs" / "quality_thresholds.yaml"),
+                                  "--results-file", str(gate_file)])
+    seconds = time.perf_counter() - t0
+    gate = json.loads(gate_file.read_text())
+    phases = gate["phases"]
+    passed = {name: not (p.get("error") or p.get("failures")) for name, p in phases.items()}
+    if not (passed.get("artifact") and passed.get("latency")):
+        raise AssertionError(f"the gate's artifact or latency phase failed: {phases}")
+    if (rc == 0) != all(passed.values()) or gate["pass"] != (rc == 0):
+        raise AssertionError(f"the gate's exit code {rc} does not follow its phases {passed}")
+    want = out["eval_eager"]
+    for key in ("recall@10", "recall@20", "ndcg@10", "ndcg@20"):
+        if abs(phases["metrics"][key] - want[key]) > GATE_METRIC_TOL:
+            raise AssertionError(f"the gate's {key} {phases['metrics'][key]} differs from evaluate_local's {want[key]}")
+    requests = len(BUCKETS) + 50  # the Recommender's warm-up, one a bucket, and --latency-requests
+    out["gate"] = {"exit_code": rc, "passed": passed, "failures": phases["metrics"]["failures"],
+                   "p50_ms": phases["latency"]["p50"], "p95_ms": phases["latency"]["p95"],
+                   "p99_ms": phases["latency"]["p99"], "size_mb": phases["artifact"]["size_mb"], "seconds": seconds,
+                   "launches": expect_counts("quality gate", session_attention=2 * (test_batches + requests),
+                                             score_chunkmax=test_batches + requests)}
+    return out
+
+
+def quickstart_pipeline(processed: Path, workdir: Path) -> dict:
+    """(e) run_full_pipeline with its defaults (100 sessions, 3 epochs, batch
+    32) on the train split: exit 0, all four models passing, kernel 4 once a
+    step; per step 2 + 3 attention launches (the two Graph Transformers) and
+    4 + 18 + 10 + 6 node dropouts (forward and backward)."""
+    subset = SessionDataset(run_full_pipeline.session_subset(str(processed / "train.csv"), 100),
+                            load_edges(processed / "graph_edges.csv"))
+    per_epoch = batches_per_epoch(subset, PIPELINE_BATCH)
+    steps = 3 * per_epoch
+    results_file = workdir / "pipeline_validation.json"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run_full_pipeline.main(["--train-sessions", str(processed / "train.csv"),
+                                 "--graph-edges", str(processed / "graph_edges.csv"),
+                                 "--results-file", str(results_file)])
+    seconds = time.perf_counter() - t0
+    results = json.loads(results_file.read_text())
+    if rc != 0 or not results["pass"] or not all(r["pass"] for r in results["models"].values()):
+        raise AssertionError(f"run_full_pipeline failed (exit {rc}): {results}")
+    launches = expect_counts("run_full_pipeline", embedding_adamw=4 * steps,
+                             session_attention=5 * steps + 5 * per_epoch, session_attention_backward=5 * steps,
+                             node_dropout=(4 + 18 + 10 + 6) * steps, score_chunkmax=4 * per_epoch)
+    return {"num_items": subset.num_items, "buckets": buckets_filled(subset), "steps_per_model": steps,
+            "seconds": seconds, "launches": launches, "models": results["models"]}
+
+
+def grad_index_sizes(ds: SessionDataset, batch_size: int) -> list[tuple[int, int]]:
+    """(U, unique rows) of the grad index of the batch of `batch_size` in
+    `ds`'s epoch with the most unique rows, then of its first batch."""
+    sizes = []
+    for batch in iterate_batches(ds, batch_size):
+        gidx = make_grad_index(batch)
+        sizes.append((len(gidx.uid), int((gidx.uid != UID_SENTINEL).sum())))
+    return [max(sizes, key=lambda size: size[1]), sizes[0]]
+
+
+def quickstart_kernels(gen: torch.Generator, splits: dict[str, SessionDataset], pipeline: dict,
+                       sass: dict) -> dict:
+    """(f) each kernel of the Quickstart's paths against its plain version at
+    that path's own shapes, timed with its bound as in phase 7: the
+    attention and node dropout at every node bucket the path's sessions fill
+    (corpus v3's sessions have at most 17 unique items), the main shape (the
+    bucket with the most sessions) first; the row-sized AdamW kernels at the
+    U and unique rows of two real training batches at the path's batch size
+    (grad_index_sizes). `splits`: corpus v3's train, val and test splits;
+    `pipeline`: the result of quickstart_pipeline; `sass`: lazy_series_sass
+    of the built library."""
+    trained = buckets_filled(splits["train"], splits["val"])  # the Trainer's steps and evaluations
+    tested = buckets_filled(splits["test"])
+    rows = {
+        "train_attention": [check_attention_training(128, N, DROPOUT, gen) for N in trained],
+        "train_dropout": [check_node_dropout(gen, (128, N, DIM)) for N in trained],
+        "train_sparse_adamw": [check_sparse_adamw(gen, torch.float32, False, U=U, n_unique=n)
+                               for U, n in grad_index_sizes(splits["train"], 128)],
+        "train_score": check_scoring(gen, 128),
+        # --lazy-adamw --batch-size 512
+        "lazy_attention": [check_attention_training(TRAIN_BATCH, N, DROPOUT, gen) for N in trained],
+        "lazy_dropout": [check_node_dropout(gen, (TRAIN_BATCH, N, DIM)) for N in trained],
+        "lazy_adamw": [check_lazy_kernels(gen, torch.float32, False, sass, U=U, n_unique=n)
+                       for U, n in grad_index_sizes(splits["train"], TRAIN_BATCH)],
+        "lazy_score": check_scoring(gen, TRAIN_BATCH),
+        "eval_attention": [check_attention(EVAL_BATCH, N, gen) for N in tested],
+        "eval_score": check_scoring(gen, EVAL_BATCH),
+        # the gate's latency phase: one request a bucket to warm up, then 2-9 items a request
+        "gate_attention": [check_attention(1, N, gen) for N in BUCKETS],
+        "gate_score": check_scoring(gen, 1),
+        "pipeline_attention": [check_attention_training(PIPELINE_BATCH, N, DROPOUT, gen, heads=h, dim=PIPELINE_DIM)
+                               for h in (2, 4) for N in pipeline["buckets"]],
+        # hidden states, the Graph Transformer's FFN, GAT's attention weights
+        "pipeline_dropout": [check_node_dropout(gen, shape) for N in pipeline["buckets"] for shape in
+                             ((PIPELINE_BATCH, N, PIPELINE_DIM), (PIPELINE_BATCH, N, 4 * PIPELINE_DIM),
+                              (PIPELINE_BATCH, 4, N, N))],
+        "pipeline_adamw": check_embedding_adamw(gen, torch.float32, False, rows=padded_rows(pipeline["num_items"]),
+                                                dim=PIPELINE_DIM),
+        "pipeline_score": check_scoring(gen, PIPELINE_BATCH, num_items=pipeline["num_items"], dim=PIPELINE_DIM),
+    }
+    torch.cuda.empty_cache()
+    return rows
+
+
+def quickstart(gen: torch.Generator, sass: dict) -> dict:
+    """Phase 13: (a) to (f), in a temporary directory. `sass`:
+    lazy_series_sass of the built library."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        out["corpus"] = quickstart_corpus(workdir / "data")
+        log(f"[phase 13] corpus {json.dumps(out['corpus'])}")
+        processed = workdir / "data" / "processed"
+        edges = load_edges(processed / "graph_edges.csv")
+        num_items = json.loads((processed / "split_info.json").read_text())["num_items"]
+        splits = {name: SessionDataset(str(processed / f"{name}.csv"), edges, num_items=num_items)
+                  for name in ("train", "val", "test")}
+        training, out["split_info"] = quickstart_training(processed, workdir, splits["val"])
+        out.update(training)
+        log(f"[phase 13] train_baseline (defaults) {json.dumps(out['train'])}")
+        log(f"[phase 13] train_baseline --lazy-adamw --batch-size 512 {json.dumps(out['lazy'])}")
+        out.update(quickstart_evaluation(processed, workdir))
+        for key in ("eval_eager", "eval_lazy", "gate"):
+            log(f"[phase 13] {key} {json.dumps(out[key])}")
+        for label in ("eager", "lazy"):  # 1.47 GB a checkpoint: gone once read
+            shutil.rmtree(workdir / label)
+        out["pipeline"] = quickstart_pipeline(processed, workdir)
+        log(f"[phase 13] run_full_pipeline {json.dumps(out['pipeline'])}")
+        out["buckets"] = {**{name: buckets_filled(ds) for name, ds in splits.items()},
+                          "pipeline": out["pipeline"]["buckets"]}
+        log(f"[phase 13] node buckets filled, most sessions first: {json.dumps(out['buckets'])}")
+        out["kernels"] = quickstart_kernels(gen, splits, out["pipeline"], sass)
+        for name, row in out["kernels"].items():
+            log(f"[phase 13] kernel {name} {json.dumps(row)}")
+        out["seconds"] = time.perf_counter() - t0
+        log(f"[phase 13] the Quickstart took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2617,7 +3002,20 @@ def main() -> int:
     zoo_launches.update({f"zoo_serving_{name}": r["launches"] for name, r in zoo_serving.items()})
     zoo_launches["zoo_smoke"] = smoke["launches"]
 
-    # Phase 13: one row per kernel and path, every key in every row.
+    # Phase 13: the Quickstart on the card
+    torch.cuda.empty_cache()
+    quick = quickstart(torch.Generator(device="cuda").manual_seed(13), series_sass)
+    qk = quick["kernels"]
+    quick_launches = {
+        "quickstart_train": quick["train"]["launches"],
+        "quickstart_lazy": quick["lazy"]["launches"],
+        "quickstart_eval": {k: quick["eval_eager"]["launches"][k] + quick["eval_lazy"]["launches"][k]
+                            for k in quick["eval_eager"]["launches"]},
+        "quickstart_gate": quick["gate"]["launches"],
+        "quickstart_pipeline": quick["pipeline"]["launches"],
+    }
+
+    # Phase 14: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -2672,6 +3070,29 @@ def main() -> int:
         ("node_dropout", "zoo_smoke", with_shapes(*smoke_dropout), zoo_launches["zoo_smoke"]["node_dropout"]),
         *((part, "zoo_smoke", with_shapes(*(a[key] for a in smoke_attn)), zoo_launches["zoo_smoke"][part])
           for part, key in (("session_attention", "forward"), ("session_attention_backward", "backward"))),
+        # The Quickstart (phase 13), each path at its own shapes (phase 13 (f)):
+        # train_baseline's defaults (B = 128, eager sparse), its --lazy-adamw run
+        # (B = 512), evaluate_local (B = 256), the gate (B = 256 and its latency
+        # requests at B = 1), run_full_pipeline (B = 32, D = 64); the main shape
+        # at the node bucket with the most sessions.
+        *((name, path, row, quick_launches[path][name]) for name, path, row in (
+            *((part, f"quickstart_{label}", with_shapes(*(a[key] for a in qk[f"{label}_attention"])))
+              for label in ("train", "lazy", "pipeline")
+              for part, key in (("session_attention", "forward"), ("session_attention_backward", "backward"))),
+            ("sparse_adamw", "quickstart_train", with_shapes(*qk["train_sparse_adamw"])),
+            *(("node_dropout", f"quickstart_{label}", with_shapes(*qk[f"{label}_dropout"]))
+              for label in ("train", "lazy", "pipeline")),
+            # materialize's work is the whole table's, whatever the batch: one shape
+            *((k, "quickstart_lazy", with_shapes(*(rows[k] for rows in qk["lazy_adamw"][:1 if last else None])))
+              for k, last in (("lazy_gather_catch_up", False), ("lazy_touched_update", False),
+                              ("lazy_materialize", True))),
+            *(("score_chunkmax", f"quickstart_{label}", with_shapes(qk[f"{label}_score"]))
+              for label in ("train", "lazy", "eval", "pipeline")),
+            ("session_attention", "quickstart_eval", with_shapes(*qk["eval_attention"])),
+            ("session_attention", "quickstart_gate", with_shapes(*qk["eval_attention"], *qk["gate_attention"])),
+            ("score_chunkmax", "quickstart_gate", with_shapes(qk["eval_score"], qk["gate_score"])),
+            ("embedding_adamw", "quickstart_pipeline", with_shapes(qk["pipeline_adamw"])),
+        )),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -2679,11 +3100,12 @@ def main() -> int:
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                   "training_chained": chained_launches, "bench_e2e": bench_launches,
-                  "latency_bench": latency_launches, **zoo_launches}[path]
+                  "latency_bench": latency_launches, **zoo_launches, **quick_launches}[path]
+        n_batch = None if batch is None else counts[f"{name}_{batch}"]
         kernels.append({
             "name": name,
             "path": path,
-            "variant": None if batch is None else (batch if counts[f"{name}_{batch}"] == count else "warp"),
+            "variant": None if batch is None else batch if n_batch == count else "warp" if n_batch == 0 else "mixed",
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -5,7 +5,7 @@ co-occurrence graph is pre-indexed as CSR adjacency, and each session's
 induced subgraph becomes a dense boolean adjacency ``adj[b, dst, src]`` over
 the bucket's node slots. ``SessionBatch`` holds the torch tensors one forward
 pass reads, plus the targets, negatives and sample mask when training.
-``SessionDataset`` pre-indexes the sessions (numpy and the csv module only),
+``SessionDataset`` pre-indexes the sessions (numpy and ``data/csv_io.py``),
 ``iterate_batches`` yields one epoch of host batches (the C++ engine of
 ``data/native.py`` where it builds, else the numpy engine), and
 ``make_grad_index`` builds the duplicate-row index of the sparse train step on
@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import csv
 import dataclasses
 import queue
 import threading
@@ -32,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gat_recommendation_torch.data.csv_io import read_csv
 from gat_recommendation_torch.device import capture_lock, resolve_device
 
 # Node-count buckets. Sessions are truncated to the last 50 events, so unique
@@ -170,23 +170,14 @@ def sample_negatives(rng: np.random.Generator, exclude, num_items: int, k: int) 
 
 
 def _read_sessions_csv(path) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(session_id, timestamp, itemid) columns of a CSV with those headers.
-    Ids that are all integers become int64; other session ids stay strings,
-    other timestamps become float64."""
-    with open(path, newline="") as f:
-        reader = csv.reader(f)
-        header = next(reader)
-        cols = [header.index(name) for name in ("session_id", "timestamp", "itemid")]
-        rows = [[row[c] for c in cols] for row in reader]
-    sid, ts, item = (np.array(col) for col in zip(*rows)) if rows else (np.zeros(0, str),) * 3
-
-    def numeric(a, fallback):
-        try:
-            return a.astype(np.int64)
-        except ValueError:
-            return fallback(a)
-
-    return numeric(sid, lambda a: a), numeric(ts, lambda a: a.astype(np.float64)), item.astype(np.int64)
+    """(session_id, timestamp, itemid) columns of a CSV with those headers,
+    with the dtypes pandas would read (``data/csv_io.py``): integer ids and
+    timestamps int64, other session ids strings. Raises if an itemid is
+    empty or not an integer."""
+    cols = read_csv(path, usecols=("session_id", "timestamp", "itemid"))
+    if cols["itemid"].dtype.kind != "i":
+        raise ValueError(f"{path}: itemid must be integers, read as {cols['itemid'].dtype}")
+    return cols["session_id"], cols["timestamp"], cols["itemid"].astype(np.int64)
 
 
 class SessionDataset:

@@ -4,18 +4,24 @@
 orders each pair canonically (min, max) with the event pair and the source
 timestamp swapped along with the items, keeps self-loops, and aggregates per
 edge the count, the last canonical-source timestamp and the event-pair
-histogram. It reads the four columns as arrays (numpy and the csv module
-only, no DataFrame) and aggregates over an int64 pair key with ``np.unique``.
-Rows come out by count descending, then (item_i, item_j) ascending.
+histogram. It reads the four columns as arrays (numpy, no DataFrame; the
+files go through ``data/csv_io.py``) and aggregates over an int64 pair key with ``np.unique``.
+Rows and histogram keys come out in the JAX builder's order, so that
+``save_edges`` writes its bytes: edges in the order their pair first occurs
+(offset 1 first, then 2, ...), sorted by count descending with pandas'
+unstable sort (``data/ordering.py``); each histogram's event pairs in the
+order they first occur for that edge.
 """
 
 from __future__ import annotations
 
-import csv
 import json
 from pathlib import Path
 
 import numpy as np
+
+from gat_recommendation_torch.data.csv_io import read_csv, write_csv
+from gat_recommendation_torch.data.ordering import pandas_argsort
 
 DEFAULT_WINDOW = 5
 EDGE_COLUMNS = ("item_i", "item_j", "count", "last_ts", "event_pair_hist")
@@ -68,23 +74,30 @@ def build_co_event_graph(sessions, window: int = DEFAULT_WINDOW) -> tuple[dict, 
     pi, pj = np.concatenate(parts_i), np.concatenate(parts_j)
     pep, pt = np.concatenate(parts_ep), np.concatenate(parts_t)
     V = int(pj.max()) + 1
-    keys, edge_of, count = np.unique(pi * V + pj, return_inverse=True, return_counts=True)
+    keys, first, edge_of, count = np.unique(pi * V + pj, return_index=True, return_inverse=True,
+                                            return_counts=True)
     edge_of = edge_of.reshape(-1)
     by_edge = np.argsort(edge_of, kind="stable")
     starts = np.concatenate([[0], np.cumsum(count)[:-1]])
     last_ts = np.maximum.reduceat(pt[by_edge], starts)
 
-    # The histogram: counts per (edge, event pair), in ascending edge order.
-    hist_keys, hist_counts = np.unique(edge_of * (E * E) + pep, return_counts=True)
+    # The histogram: counts per (edge, event pair), each edge's pairs in the
+    # order they first occur.
+    hist_keys, hist_first, hist_counts = np.unique(edge_of * (E * E) + pep, return_index=True,
+                                                   return_counts=True)
+    hist_edge, hist_pair = hist_keys // (E * E), hist_keys % (E * E)
+    in_order = np.lexsort((hist_first, hist_edge))
     pair_names = [f"{a}_{b}" for a in event_names.tolist() for b in event_names.tolist()]
     if E == 1:
         hist = [{pair_names[0]: c} for c in hist_counts.tolist()]
     else:
         hist = [{} for _ in range(len(keys))]
-        for e, p, c in zip((hist_keys // (E * E)).tolist(), (hist_keys % (E * E)).tolist(), hist_counts.tolist()):
+        for e, p, c in zip(hist_edge[in_order].tolist(), hist_pair[in_order].tolist(),
+                           hist_counts[in_order].tolist()):
             hist[e][pair_names[p]] = c
 
-    rows = np.argsort(-count, kind="stable")  # count descending; ties keep (item_i, item_j) ascending
+    appear = np.argsort(first, kind="stable")  # edges by first occurrence (pandas' groupby, sort=False)
+    rows = appear[pandas_argsort(count[appear], ascending=False)]
     item_i, item_j = keys[rows] // V, keys[rows] % V
     count = count[rows].astype(np.int64)
     edges = {"item_i": item_i, "item_j": item_j, "count": count, "last_ts": last_ts[rows],
@@ -107,14 +120,8 @@ def build_co_event_graph(sessions, window: int = DEFAULT_WINDOW) -> tuple[dict, 
 def save_edges(edges: dict, csv_path, npz_path=None) -> None:
     """The reference CSV (histogram as JSON) and, with `npz_path`, the packed
     npz of the four numeric columns that training and serving read."""
-    csv_path = Path(csv_path)
-    csv_path.parent.mkdir(parents=True, exist_ok=True)
-    with open(csv_path, "w", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(EDGE_COLUMNS)
-        numeric = (np.asarray(edges[k]).tolist() for k in EDGE_COLUMNS[:4])
-        for *row, hist in zip(*numeric, edges["event_pair_hist"]):
-            writer.writerow([*row, json.dumps(hist)])
+    hist = np.array([json.dumps(h) for h in edges["event_pair_hist"]], dtype=str)
+    write_csv({**{k: np.asarray(edges[k]) for k in EDGE_COLUMNS[:4]}, "event_pair_hist": hist}, csv_path)
     if npz_path is not None:
         np.savez_compressed(npz_path, **{k: np.asarray(edges[k], dtype=np.int64) for k in EDGE_COLUMNS[:4]})
 
@@ -132,12 +139,5 @@ def load_edges(path) -> tuple[np.ndarray, np.ndarray]:
     if path.suffix == ".npz":
         with np.load(path) as z:
             return z["item_i"].astype(np.int64), z["item_j"].astype(np.int64)
-    # The csv module, not a numeric parser: the reference CSV carries a quoted
-    # JSON histogram column whose commas a plain split would misread.
-    with open(path, newline="") as f:
-        reader = csv.reader(f)
-        header = next(reader)
-        ci, cj = header.index("item_i"), header.index("item_j")
-        pairs = [(row[ci], row[cj]) for row in reader]
-    arr = np.array(pairs, dtype=np.int64).reshape(-1, 2)
-    return arr[:, 0].copy(), arr[:, 1].copy()
+    cols = read_csv(path, usecols=("item_i", "item_j"))  # a CSV reader: the histogram column holds commas
+    return cols["item_i"].astype(np.int64), cols["item_j"].astype(np.int64)

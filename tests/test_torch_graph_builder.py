@@ -5,11 +5,11 @@
 timestamp and event-pair histogram, and the same stats, over seeded corpora
 with mixed event types, ties in timestamp and in count, self-loops (an item
 twice in a session) and sessions shorter than the window. The JAX builder
-orders rows by pandas' unstable sort on count, so rows are compared after
-sorting both by (item_i, item_j); the port's own order (count descending,
-then (item_i, item_j) ascending) is checked on its own. ``save_edges`` then
-``load_edges`` round-trips through the CSV and the npz, and the CSV parses
-to the JAX writer's rows.
+orders rows by pandas' unstable sort on count; the edges are compared after
+sorting both by (item_i, item_j), and the port's rows and histogram keys in
+their order against the JAX builder's (count descending, ties as pandas'
+sort leaves them). ``save_edges`` then ``load_edges`` round-trips through
+the CSV and the npz, and the CSV is the JAX writer's file byte for byte.
 """
 
 import csv
@@ -106,9 +106,15 @@ def test_sessions_shorter_than_the_window(events):
 
 
 def test_rows_are_ordered_by_count_then_pair():
-    got, _ = port.build_co_event_graph(_sessions(5), 5)
-    key = list(zip(-got["count"], got["item_i"], got["item_j"]))
-    assert key == sorted(key) and len(key) > 100
+    """Count descending; rows of equal count, and the keys of each
+    histogram, in the JAX builder's order."""
+    cols = _sessions(5)
+    got, _ = port.build_co_event_graph(cols, 5)
+    want, _ = _jax_edges(cols, 5)
+    assert np.all(np.diff(got["count"]) <= 0) and len(got["count"]) > 100
+    for k in ("item_i", "item_j", "count", "last_ts"):
+        assert np.array_equal(got[k], want[k]), k
+    assert [list(h) for h in got["event_pair_hist"]] == [list(h) for h in want["event_pair_hist"]]
 
 
 @pytest.mark.parametrize("suffix", [".csv", ".npz"])
@@ -137,6 +143,7 @@ def test_the_csv_parses_to_the_jax_writers_rows(tmp_path):
             return header, sorted((int(r[0]), int(r[1]), int(r[2]), int(r[3]), json.loads(r[4])) for r in reader)
 
     assert rows(tmp_path / "port.csv") == rows(tmp_path / "jax.csv")
+    assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
 
 
 def test_tuple_and_mapping_columns_agree():

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package, nor pandas.
 
 The test session has already imported JAX (tests/conftest.py), so the import
-check runs in a fresh interpreter.
+check runs in a fresh interpreter. The optional packages (PyYAML, rich,
+google-cloud-storage) are imported only inside the calls that use them.
 """
 
 import re
@@ -21,7 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "pandas", "gat_recommendation_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "pandas", "gat_recommendation_tpu",
+                                       "yaml", "rich")
+                or m.startswith("google.cloud.storage"))
 print(len(names), leaked)
 """
 
@@ -53,13 +56,19 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     )
 
 
-@pytest.mark.parametrize("entry", ["create_model", "Trainer", "Recommender"])
+CLIS = ("train_baseline", "evaluate_local", "model_quality_gate", "run_full_pipeline")
+
+
+@pytest.mark.parametrize("entry", ["create_model", "Trainer", "Recommender", *CLIS])
 def test_every_entry_point_defaults_to_the_card_and_raises_without_one(entry, monkeypatch, tmp_path):
-    """No entry point lands on the CPU quietly: without `device` each asks
-    for cuda and raises where there is none."""
+    """No entry point lands on the CPU quietly: without `device` (or
+    ``--device``) each asks for cuda and raises where there is none."""
     import torch
 
     from gat_recommendation_torch.models.registry import create_model
+    from gat_recommendation_torch.scripts import evaluate_local
+    from gat_recommendation_torch.scripts.pipeline import model_quality_gate, run_full_pipeline
+    from gat_recommendation_torch.scripts.train import train_baseline
     from gat_recommendation_torch.serving.recommender import Recommender
     from gat_recommendation_torch.train.trainer import Trainer
 
@@ -71,5 +80,9 @@ def test_every_entry_point_defaults_to_the_card_and_raises_without_one(entry, mo
             create_model("graph_transformer_optimized", 50, **small)
         elif entry == "Trainer":
             Trainer(model, lambda epoch: iter(()), lambda: iter(()))
-        else:
+        elif entry == "Recommender":
             Recommender(tmp_path / "no_checkpoint", tmp_path / "no_edges.csv", warmup=False)
+        else:  # the command lines, on inputs they would read after choosing the device
+            cli = {"train_baseline": train_baseline, "evaluate_local": evaluate_local,
+                   "model_quality_gate": model_quality_gate, "run_full_pipeline": run_full_pipeline}[entry]
+            cli.main([])

@@ -98,7 +98,9 @@ def _attn_inputs(dev, B, N, HD, seed=0, density=0.35):
      # four destinations to a block below that, N on and off a multiple of 4
      (15, 56, 2, 256), (255, 8, 2, 256), (70, 1, 1, 4), (40, 7, 2, 64), (32, 16, 2, 256), (31, 56, 1, 128),
      (1, 16, 2, 256), (1, 32, 2, 256), (1, 64, 2, 256), (1, 5, 2, 64), (8, 56, 2, 256), (8, 7, 2, 64),
-     (31, 7, 2, 64), (31, 33, 1, 128), (8, 3, 4, 16)],
+     (31, 7, 2, 64), (31, 33, 1, 128), (8, 3, 4, 16),
+     # the Quickstart: evaluate_local and the gate at batch 256, every bucket
+     (256, 56, 2, 256), (256, 16, 2, 256), (256, 32, 2, 256)],
 )
 def test_session_attention_kernel_matches_plain(cuda, B, N, heads, HD):
     q, k, v, adj = _attn_inputs(cuda, B, N, HD)
@@ -181,7 +183,9 @@ def _score_inputs(dev, B, V, D, integer, seed=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,D,integer", [(1, 256, False), (1, 256, True), (4, 256, False), (2, 64, True), (3, 512, False)]
+    "B,D,integer", [(1, 256, False), (1, 256, True), (4, 256, False), (2, 64, True), (3, 512, False),
+                    # the Quickstart's evaluation batches: 128 (the Trainer), 256 (evaluate_local), 32 at D = 64
+                    (128, 256, False), (256, 256, True), (32, 64, False)]
 )
 def test_score_chunkmax_kernel_matches_plain(cuda, B, D, integer):
     V, num_items = 8192, 8000
@@ -283,7 +287,11 @@ def test_score_chunkmax_takes_a_one_row_exclusion_mask(cuda):
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize(
     "B,N,heads,HD", [(1, 8, 2, 256), (64, 56, 2, 256), (3, 1, 1, 4), (5, 64, 4, 512), (2, 33, 1, 96),
-                     (70, 1, 1, 4), (40, 7, 2, 64), (16, 64, 4, 512), (32, 16, 2, 256)]
+                     (70, 1, 1, 4), (40, 7, 2, 64), (16, 64, 4, 512), (32, 16, 2, 256),
+                     # the Quickstart: train_baseline at batch 128 in every node bucket;
+                     # run_full_pipeline's batch 32 at width 64, 2 heads of 32 and 4 of 16
+                     (128, 56, 2, 256), (128, 8, 2, 256), (128, 16, 2, 256), (128, 32, 2, 256),
+                     (32, 8, 2, 64), (32, 8, 4, 64), (32, 16, 4, 64)]
 )
 def test_session_attention_forward_and_backward_match_plain(cuda, B, N, heads, HD, dropout_p):
     q, k, v, adj = _attn_inputs(cuda, B, N, HD)
@@ -435,7 +443,9 @@ def _adamw_inputs(dev, rows, D, U, n_unique, moment_dtype, seed=4, row_offset=0)
         (torch.bfloat16, torch.float32, True),
     ],
 )
-@pytest.mark.parametrize("rows,D,U,n_unique,row_offset", [(4096, 256, 1024, 700, 0), (1000, 36, 64, 64, 512), (513, 4, 2048, 3, 0)])
+@pytest.mark.parametrize("rows,D,U,n_unique,row_offset", [(4096, 256, 1024, 700, 0), (1000, 36, 64, 64, 512), (513, 4, 2048, 3, 0),
+                                                         # a batch of 128's unique rows over the full table
+                                                         (467_456, 256, 2048, 1400, 0)])
 def test_sparse_adamw_kernel_matches_plain(cuda, rows, D, U, n_unique, row_offset, mu_dtype, nu_dtype, sr):
     args = _adamw_inputs(cuda, rows, D, U, n_unique, torch.float32, row_offset=row_offset)
     args = (args[0], args[1].to(mu_dtype), args[2].to(nu_dtype), *args[3:])
@@ -461,7 +471,7 @@ def test_sparse_adamw_kernel_matches_plain(cuda, rows, D, U, n_unique, row_offse
     [(torch.float32, torch.float32, False), (torch.bfloat16, torch.bfloat16, False),
      (torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.bfloat16, True)],
 )
-@pytest.mark.parametrize("rows,D", [(4096, 256), (777, 36)])
+@pytest.mark.parametrize("rows,D", [(4096, 256), (777, 36), (467_456, 64)])  # run_full_pipeline's table
 def test_embedding_adamw_kernel_matches_plain(cuda, rows, D, mu_dtype, nu_dtype, sr):
     table, mu, nu, _, _ = _adamw_inputs(cuda, rows, D, 8, 4, torch.float32)
     grad = torch.from_numpy(
@@ -530,7 +540,10 @@ LAZY_MOMENTS = [(torch.float32, torch.float32, False), (torch.bfloat16, torch.bf
 @pytest.mark.cuda
 @pytest.mark.parametrize("mu_dtype,nu_dtype,sr", LAZY_MOMENTS)
 @pytest.mark.parametrize("rows,D,U,n_real,count", [(4096, 256, 1024, 700, 900), (999, 36, 64, 64, 70),
-                                                    (513, 4, 40, 3, 2)])
+                                                    (513, 4, 40, 3, 2),
+                                                    # corpus v3's training batch of 512 with the most
+                                                    # unique rows
+                                                    (467_456, 256, 8192, 6125, 900)])
 def test_lazy_gather_and_touched_update_kernels_match_plain(cuda, rows, D, U, n_real, count, mu_dtype,
                                                            nu_dtype, sr):
     table, mu, nu, last, uid, summed = _lazy_inputs(cuda, rows, D, U, n_real, count, mu_dtype, nu_dtype)
@@ -636,7 +649,11 @@ def test_lazy_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.1, 0.5])
-@pytest.mark.parametrize("shape", [(512, 56, 256), (3, 7, 4), (16, 8, 64)])
+@pytest.mark.parametrize("shape", [(512, 56, 256), (3, 7, 4), (16, 8, 64),
+                                   # the Quickstart: batch 128 (its node buckets 8, 16, 32); run_full_pipeline's
+                                   # nodes, GAT weights, FFN
+                                   (128, 56, 256), (128, 8, 256), (128, 16, 256), (32, 8, 64), (32, 4, 8, 8),
+                                   (32, 8, 256), (32, 16, 64), (32, 4, 16, 16)])
 def test_node_dropout_kernel_matches_plain_bit_for_bit(cuda, shape, rate):
     """Forward and backward of the kernel against the plain version on the
     same seed: the same keep bits and the same float32 product, so EQUAL;
