@@ -158,7 +158,28 @@ Phases, each fatal on failure (nothing is caught and carried on):
      at every node bucket the path fills (with the forward kernel each
      took), the row-sized AdamW kernels at the unique rows of real batches
      of corpus v3 at the path's batch size.
- 14. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 14. what serving still lacked, on phase 4's checkpoint and edges (written
+     again from the same seeds): phase 4's 12 requests over HTTP through
+     Recommender(int8_scoring=True) on the card (the forward on the card,
+     the int8 scan and the float32 re-rank on the host; counted: 2 attention
+     launches a request, no scoring launch), each request's top 10 equal to
+     the exact path's (kernel 2) but for near-ties, scores within
+     SERVE_TOL, p50/p95/p99 of both modes over the latency bench's 200
+     requests; full_catalog_topk(method="approx") at B=1 (the serving mask)
+     and B=512, ids equal to the exact path's (counted: 1 scoring launch a
+     call), and the exact path on the table cut to its 466,865 real rows
+     (off the 32-row chunk: kernel 2 on a padded copy, counted, equal);
+     two_level_topk at chunks 8, 16 and 64 against chunk 32 (ids
+     equal but for near-ties of kernel 2's and cuBLAS's scores within
+     SELECT_TOL; no kernel at those chunks), each selector timed eagerly;
+     the dev and the Vertex-style server (scripts/serve) over HTTP on the
+     card's copy of the table: every route (/health, /recommend,
+     /recommend/batch; /predict, /metrics, /drift), answers against a CPU
+     copy (the first 50), HTTP p50/p95/p99 over the latency bench's 200
+     requests and the dev model's p50 by stage in process, the no-op Metrics and the
+     dataclass schemas where prometheus_client and pydantic are absent;
+     scripts/bench_scoring once (B=512, full catalog, counted).
+ 15. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -218,7 +239,13 @@ from gat_recommendation_torch.ops.score_chunkmax import (
     score_chunkmax_reference,
     score_chunkmax_variant,
 )
-from gat_recommendation_torch.ops.scoring import dense_topk, full_catalog_topk, select_topk
+from gat_recommendation_torch.ops.scoring import (
+    approx_topk,
+    dense_topk,
+    full_catalog_topk,
+    select_topk,
+    two_level_topk,
+)
 from gat_recommendation_torch.ops.session_attention import (
     session_attention,
     session_attention_backward,
@@ -227,11 +254,13 @@ from gat_recommendation_torch.ops.session_attention import (
     session_attention_variant,
 )
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
-from gat_recommendation_torch.scripts import evaluate_local
+from gat_recommendation_torch.scripts import bench_scoring, evaluate_local
 from gat_recommendation_torch.scripts.data import regen_refscale
 from gat_recommendation_torch.scripts.pipeline import model_quality_gate, run_full_pipeline
+from gat_recommendation_torch.scripts.serve import app as dev_app
+from gat_recommendation_torch.scripts.serve import vertex_app
 from gat_recommendation_torch.scripts.train import train_baseline
-from gat_recommendation_torch.serving import app, latency_bench
+from gat_recommendation_torch.serving import app, latency_bench, schemas
 from gat_recommendation_torch.serving.recommender import Recommender
 from gat_recommendation_torch.serving.validation import validate_request
 from gat_recommendation_torch.train import checkpoint
@@ -776,7 +805,7 @@ def serve_full_width(workdir: Path) -> dict:
 
     t0 = time.perf_counter()
     rec = Recommender(workdir / "ckpt", workdir / "graph_edges.csv", device="cuda")
-    cpu = Recommender(workdir / "ckpt", workdir / "graph_edges.csv", device="cpu", warmup=False)
+    cpu = Recommender(workdir / "ckpt", workdir / "graph_edges.csv", device="cpu", warmup=False, int8_scoring=False)
     log(f"[phase 4] recommenders loaded and warmed in {time.perf_counter() - t0:.1f} s")
 
     app.set_recommender(rec)
@@ -2406,7 +2435,7 @@ def serve_zoo_model(name: str, fields: dict, workdir: Path) -> dict:
     sessions = make_sessions(rng)
     make_zoo_checkpoint(workdir / name, name, fields)
     rec = Recommender(workdir / name, workdir / "graph_edges.csv", device="cuda")
-    cpu = Recommender(workdir / name, workdir / "graph_edges.csv", device="cpu", warmup=False)
+    cpu = Recommender(workdir / name, workdir / "graph_edges.csv", device="cpu", warmup=False, int8_scoring=False)
     requests = [validate_request(_Req(items, k), NUM_ITEMS) for items, k in sessions]
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -2449,7 +2478,8 @@ def pe_on_the_bench_graph(workdir: Path) -> dict:
     del model
     np.savez(workdir / "bench_edges.npz", item_i=edges["item_i"], item_j=edges["item_j"])
     rec = Recommender(workdir / "pe_ckpt", workdir / "bench_edges.npz", device="cuda", warmup=False)
-    cpu = Recommender(workdir / "pe_ckpt", workdir / "bench_edges.npz", device="cpu", warmup=False)
+    cpu = Recommender(workdir / "pe_ckpt", workdir / "bench_edges.npz", device="cpu", warmup=False,
+                      int8_scoring=False)
     session = items[sid == 0]
     request = validate_request(_Req([int(i) for i in session], 10), NUM_ITEMS)
     agree(rec.recommend(request), cpu.recommend(request))
@@ -2820,6 +2850,260 @@ def quickstart(gen: torch.Generator, sass: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: what serving still lacked (the int8 scan, approx, chunk=, the
+# dev and Vertex servers, the scoring bench)
+# ---------------------------------------------------------------------------
+
+SELECT_TOL = 1e-5  # kernel 2 against cuBLAS scores of the same float32 products
+SERVER_REQUESTS = 200  # a server's HTTP latency: the latency bench's requests (2-11 items, k = 10)
+SERVER_CHECKED = 50  # of which the first are held against the CPU copy of the model
+BENCH_SCORING_STEPS = 10
+
+
+def get(url: str) -> tuple[int, bytes, float]:
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.read(), (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def serving(server):
+    """`server` answering on its own thread; shut down and joined on exit."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("a server thread did not stop")
+
+
+def percentiles(ms: list) -> dict:
+    return {"p50": float(np.percentile(ms, 50)), "p95": float(np.percentile(ms, 95)),
+            "p99": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
+def serve_int8(workdir: Path, rng: np.random.Generator) -> tuple[dict, dict]:
+    """Phase 4's requests over HTTP through Recommender(int8_scoring=True) on
+    the card (the forward on the card, the int8 scan and the float32 re-rank
+    on the host), counted: 2 attention launches a request and no scoring
+    launch. Each request's top 10 against the exact path's (kernel 2) on the
+    card, near-ties aside; then the latency of both modes over the latency
+    bench's 200 requests."""
+    int8 = Recommender(workdir / "ckpt", workdir / "graph_edges.csv", device="cuda", int8_scoring=True)
+    exact = Recommender(workdir / "ckpt", workdir / "graph_edges.csv", device="cuda", int8_scoring=False)
+    if not int8.health()["int8_scoring"] or exact.health()["int8_scoring"]:
+        raise AssertionError(f"health() does not report the scoring path: {int8.health()}, {exact.health()}")
+    sessions = make_sessions(rng)
+    app.set_recommender(int8)
+    answers = []
+    reset_launch_counts()
+    try:
+        with serving(app.make_server("127.0.0.1", 0, load_model=False)) as url:
+            for items, k in sessions:
+                status, payload, _ = post(f"{url}/recommend", {"session_items": items, "k": k})
+                if status != 200 or len(payload["recommendations"]) != k:
+                    raise AssertionError(f"int8 serving: HTTP {status} {payload}")
+                answers.append((payload["recommendations"], payload["scores"]))
+    finally:
+        app.set_recommender(None)
+    launches = expect_counts("int8 serving", session_attention=2 * len(sessions))
+    same_ids = 0
+    for (items, k), (ids, scores) in zip(sessions, answers):
+        want = exact.recommend(validate_request(_Req(items, k), NUM_ITEMS))
+        top = min(k, 10)
+        agree((ids[:top], scores[:top]), (want[0][:top], want[1][:top]))
+        same_ids += ids == want[0]
+        if set(ids) & set(items) or 0 in ids or max(ids) >= NUM_ITEMS:
+            raise AssertionError("int8 serving recommended a seen, padding or phantom item")
+    requests = latency_bench.make_requests(NUM_ITEMS, 200)
+    latency = {mode: latency_bench.measure(rec, requests) for mode, rec in (("int8", int8), ("exact", exact))}
+    return {"requests": len(sessions), "top10_equal_exact": True,
+            "whole_k_equal_exact": f"{same_ids} of {len(sessions)}", "latency_ms": latency,
+            "n_threads": 2, "candidates": 1024}, launches
+
+
+def selection_paths(workdir: Path, gen: torch.Generator) -> tuple[dict, dict]:
+    """approx at B = 1 (with the serving mask) and B = 512 against the exact
+    path (ids equal: the same kernel scores), then two_level_topk at chunks
+    8, 16 and 64 against chunk 32 (ids equal but where the two scores,
+    kernel 2's and cuBLAS's, tie within SELECT_TOL), each path counted, and
+    each timed eagerly (CUDA events, host dispatch included)."""
+    model = create_model("graph_transformer_optimized", NUM_ITEMS, device="meta")
+    table = checkpoint.restore_params_state(workdir / "ckpt", model, "cuda").item_embedding.detach()
+    exclude = torch.zeros(table.shape[0], dtype=torch.uint8, device=table.device)
+    exclude[torch.randint(1, NUM_ITEMS, (10,), device=table.device, generator=gen)] = 1
+    exclude[0] = 1
+    out, launches = {}, {}
+    for B in (1, TRAIN_BATCH):
+        sess = torch.randn(B, DIM, device=table.device, generator=gen)
+        mask = exclude if B == 1 else None
+        exact = full_catalog_topk(sess, table, 20, NUM_ITEMS, exclude=mask)
+        reset_launch_counts()
+        approx = full_catalog_topk(sess, table, 20, NUM_ITEMS, method="approx", exclude=mask)
+        launches[f"approx_B{B}"] = expect_counts(f"approx at B={B}", score_chunkmax=1)
+        if not (torch.equal(approx[1], exact[1]) and torch.equal(approx[0], exact[0])):
+            raise AssertionError(f"approx at B={B}: ids differ from the exact path's")
+        if B == 1:  # a table off the 32-row chunk: kernel 2 on a padded copy
+            reset_launch_counts()
+            off = full_catalog_topk(sess, table[:NUM_ITEMS], 20, exclude=exclude[:NUM_ITEMS])
+            expect_counts("two_level_topk on a table off the chunk", score_chunkmax=1)
+            if not (torch.equal(off[1], exact[1]) and torch.equal(off[0], exact[0])):
+                raise AssertionError("two_level_topk on a table off the chunk differs from the padded table's")
+            off_chunk_ms = eager_ms(lambda: full_catalog_topk(sess, table[:NUM_ITEMS], 20,
+                                                              exclude=exclude[:NUM_ITEMS]), 10)
+        reset_launch_counts()
+        chunk32 = two_level_topk(sess, table, 20, NUM_ITEMS, chunk=32, exclude=mask)
+        launches[f"chunk32_B{B}"] = expect_counts(f"two_level_topk chunk 32 at B={B}", score_chunkmax=1)
+        if not torch.equal(chunk32[1], exact[1]):
+            raise AssertionError(f"two_level_topk chunk 32 at B={B} differs from full_catalog_topk")
+        row = {"approx_ms": eager_ms(lambda: approx_topk(sess, table, 20, NUM_ITEMS, exclude=mask), 10),
+               "exact_ms": eager_ms(lambda: full_catalog_topk(sess, table, 20, NUM_ITEMS, exclude=mask), 10),
+               "ids_differing_near_ties": {}}
+        if B == 1:
+            row["exact_off_chunk_ms"] = off_chunk_ms
+        reset_launch_counts()
+        for chunk in (8, 16, 64):
+            got = two_level_topk(sess, table, 20, NUM_ITEMS, chunk=chunk, exclude=mask)
+            near_tie_agree(got, chunk32, tol=SELECT_TOL)
+            row["ids_differing_near_ties"][chunk] = int((got[1] != chunk32[1]).sum())
+            row[f"chunk{chunk}_ms"] = eager_ms(
+                lambda: two_level_topk(sess, table, 20, NUM_ITEMS, chunk=chunk, exclude=mask), 10)
+        expect_counts(f"two_level_topk chunks 8, 16, 64 at B={B}")  # the plain selection: no kernel
+        out[f"B={B}"] = row
+    approx_counts = {k: launches["approx_B1"][k] + launches[f"approx_B{TRAIN_BATCH}"][k] for k in launches["approx_B1"]}
+    chunk_counts = {k: launches["chunk32_B1"][k] + launches[f"chunk32_B{TRAIN_BATCH}"][k] for k in launches["chunk32_B1"]}
+    return out, {"approx": approx_counts, "two_level_chunk32": chunk_counts}
+
+
+def scoring_bench() -> tuple[dict, dict]:
+    """gat_recommendation_torch.scripts.bench_scoring once at its defaults
+    (B = 512 over the full catalog, k = 20), BENCH_SCORING_STEPS steps a
+    window, counted: kernel 2 once a step of each chunk-32 selector."""
+    reset_launch_counts()
+    result = bench_scoring.run(steps=BENCH_SCORING_STEPS, device="cuda")
+    calls = 1 + 2 * max(BENCH_SCORING_STEPS // 5, 1) + BENCH_SCORING_STEPS  # warm-up, short and long windows
+    launches = expect_counts("bench_scoring", score_chunkmax=3 * calls)  # two_level, nomask, approx
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def mean_embedding_servers(workdir: Path) -> dict:
+    """The dev and the Vertex-style server over HTTP on the card, on phase 4's
+    checkpoint's table: every route of each (/health, /recommend,
+    /recommend/batch; /predict, /metrics, /drift), the first SERVER_CHECKED
+    answers against a CPU copy of the model, HTTP latency over
+    SERVER_REQUESTS requests, then the dev model's p50 by stage in process;
+    the no-op Metrics and the dataclass schemas where their packages are
+    absent."""
+    model = dev_app.MeanEmbeddingModel.from_checkpoint(str(workdir / "ckpt"), device="cuda")
+    cpu = dev_app.MeanEmbeddingModel(model.item_embeddings.cpu().numpy(), device="cpu")
+    requests = latency_bench.make_requests(NUM_ITEMS, SERVER_REQUESTS)
+    out = {"metrics_enabled": vertex_app.metrics.enabled, "pydantic": schemas.PYDANTIC,
+           "request_schema": repr(schemas.RecommendRequest(session_items=[1, 2], k=3))}
+    for name, server in (("dev", dev_app.make_server(model, "127.0.0.1", 0)),
+                         ("vertex", vertex_app.make_server(model, "127.0.0.1", 0))):
+        with serving(server) as url:
+            status, body, _ = get(f"{url}/health")
+            health = json.loads(body)
+            if status != 200 or health["num_items"] != padded_rows(NUM_ITEMS) or health["embedding_dim"] != DIM:
+                raise AssertionError(f"{name} /health: {status} {health}")
+            ms, answers = [], []
+            for r in requests:
+                status, payload, t = post(f"{url}/recommend", {"session_items": r.session_items, "k": r.k})
+                if status != 200:
+                    raise AssertionError(f"{name} /recommend: {status} {payload}")
+                answers.append((payload["recommendations"], payload["scores"]))
+                ms.append(t)
+            for r, answer in zip(requests[:SERVER_CHECKED], answers):  # after the timing: the CPU copy's threads
+                agree(answer, cpu.recommend(r.session_items, r.k))
+            batch = {"sessions": [r.session_items for r in requests[:4]] + [[10 ** 7]], "k": 5}
+            status, payload, _ = post(f"{url}/recommend/batch", batch)
+            results = payload["results"]
+            if status != 200 or len(results) != 5 or "error" not in results[4] or \
+                    any(len(x["recommendations"]) != 5 for x in results[:4]):
+                raise AssertionError(f"{name} /recommend/batch: {status} {payload}")
+            row = {"http_ms": percentiles(ms)}
+            if name == "vertex":
+                instances = [{"session_items": r.session_items, "k": 3} for r in requests[:3]] + [{"session_items": []}]
+                status, payload, _ = post(f"{url}/predict", {"instances": instances})
+                preds = payload["predictions"]
+                if status != 200 or len(preds) != 4 or "error" not in preds[3] or \
+                        any(len(p["recommendations"]) != 3 for p in preds[:3]):
+                    raise AssertionError(f"vertex /predict: {status} {payload}")
+                status, metrics_body, _ = get(f"{url}/metrics")
+                if status != 200 or (not vertex_app.metrics.enabled and
+                                     metrics_body != b"# prometheus_client not installed\n"):
+                    raise AssertionError(f"vertex /metrics: {status} {metrics_body[:200]}")
+                status, body, _ = get(f"{url}/drift")
+                drift = json.loads(body)
+                if status != 200 or drift["requests_seen"] != SERVER_REQUESTS + 4 + 3:
+                    raise AssertionError(f"vertex /drift: {status} {drift}")
+                row.update(metrics_bytes=len(metrics_body), drift=drift)
+        out[name] = row
+    out["dev_p50_by_stage_ms"] = recommend_stages(model, requests)
+    return out
+
+
+def recommend_stages(model, requests) -> dict:
+    """p50 in ms, host clock, of MeanEmbeddingModel.recommend on the card
+    called in process (no HTTP), and of its three stages, the same steps with
+    the card synchronised after each: the session mean and the masked cosine
+    scores of the whole catalog, the stable descending sort of those scores,
+    and the top k's readback to the host. HTTP's share is the server's p50
+    less the in-process one."""
+    times: dict = {"in_process": [], "mean_and_scores": [], "stable_sort": [], "readback": []}
+    for r in requests:
+        t0 = time.perf_counter()
+        model.recommend(r.session_items, r.k)  # ends in a readback
+        t1 = time.perf_counter()
+        idx = torch.tensor([i for i in r.session_items if 0 < i < model.num_items], device=model.device)
+        sess = model.item_embeddings[idx].mean(dim=0)
+        scores = model._normed @ (sess / torch.linalg.vector_norm(sess).clamp_min(1e-12))
+        scores[idx] = -torch.inf
+        scores[0] = -torch.inf
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        top = torch.sort(scores, descending=True, stable=True).indices[:r.k]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        top.tolist(), scores[top].tolist()
+        t4 = time.perf_counter()
+        for key, a, b in (("in_process", t0, t1), ("mean_and_scores", t1, t2), ("stable_sort", t2, t3),
+                          ("readback", t3, t4)):
+            times[key].append((b - a) * 1e3)
+    return {key: float(np.percentile(ms, 50)) for key, ms in times.items()}
+
+
+def serving_rest(gen: torch.Generator) -> tuple[dict, dict]:
+    """Phase 14 in a temporary directory holding phase 4's checkpoint and
+    edges again (the same seeds)."""
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        make_checkpoint(workdir / "ckpt")
+        make_edges(workdir / "graph_edges.csv", rng)
+        out["int8"], int8_launches = serve_int8(workdir, rng)
+        log(f"[phase 14] int8 serving {json.dumps(out['int8'])}")
+        torch.cuda.empty_cache()
+        out["selection"], selection_launches = selection_paths(workdir, gen)
+        log(f"[phase 14] approx and two_level_topk by chunk {json.dumps(out['selection'])}")
+        out["servers"] = mean_embedding_servers(workdir)
+        log(f"[phase 14] dev and Vertex servers {json.dumps(out['servers'])}")
+    torch.cuda.empty_cache()
+    out["bench_scoring"], bench_launches = scoring_bench()
+    log(f"[phase 14] bench_scoring {json.dumps(out['bench_scoring'])}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 14] took {out['seconds']:.1f} s")
+    return out, {"serving_int8": int8_launches, **selection_launches, "bench_scoring": bench_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3015,7 +3299,11 @@ def main() -> int:
         "quickstart_pipeline": quick["pipeline"]["launches"],
     }
 
-    # Phase 14: one row per kernel and path, every key in every row.
+    # Phase 14: what serving still lacked
+    torch.cuda.empty_cache()
+    _, rest_launches = serving_rest(torch.Generator(device="cuda").manual_seed(14))
+
+    # Phase 15: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -3093,6 +3381,14 @@ def main() -> int:
             ("score_chunkmax", "quickstart_gate", with_shapes(qk["eval_score"], qk["gate_score"])),
             ("embedding_adamw", "quickstart_pipeline", with_shapes(qk["pipeline_adamw"])),
         )),
+        # Phase 14: the int8 path's forward (kernel 1), approx and two-level at
+        # chunk 32 (kernel 2 at B = 1 with the serving mask and at B = 512),
+        # the scoring bench (B = 512).
+        ("session_attention", "serving_int8", attn[(1, 56)], rest_launches["serving_int8"]["session_attention"]),
+        ("score_chunkmax", "approx", with_shapes(score, score_eval), rest_launches["approx"]["score_chunkmax"]),
+        ("score_chunkmax", "two_level_chunk32", with_shapes(score, score_eval),
+         rest_launches["two_level_chunk32"]["score_chunkmax"]),
+        ("score_chunkmax", "bench_scoring", score_eval, rest_launches["bench_scoring"]["score_chunkmax"]),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3100,7 +3396,7 @@ def main() -> int:
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                   "training_chained": chained_launches, "bench_e2e": bench_launches,
-                  "latency_bench": latency_launches, **zoo_launches, **quick_launches}[path]
+                  "latency_bench": latency_launches, **zoo_launches, **quick_launches, **rest_launches}[path]
         n_batch = None if batch is None else counts[f"{name}_{batch}"]
         kernels.append({
             "name": name,

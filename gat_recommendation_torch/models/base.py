@@ -1,5 +1,6 @@
 """Shared model pieces: initializers, the padded item table, session readout,
-masked BatchNorm, and ``SessionModel``, the base of every model of the registry.
+masked BatchNorm, ``SessionModel`` (the base of every model of the registry),
+the full-catalog ``predict_topk`` and the BPR loss on embeddings.
 
 Linear layers are ``nn.Linear`` (weight ``[out, in]``, apply ``x @ W.T + b``);
 the JAX package stores ``w`` as ``[in, out]`` and ``convert.py`` transposes.
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gat_recommendation_torch.data.batching import SessionBatch
@@ -81,6 +83,39 @@ def mask_phantom(scores: torch.Tensor, num_items: int | None) -> torch.Tensor:
         return scores
     col = torch.arange(scores.shape[-1], device=scores.device)
     return torch.where(col < num_items, scores, torch.full_like(scores, -math.inf))
+
+
+def predict_topk(
+    session_embeddings: torch.Tensor,
+    item_embeddings: torch.Tensor,
+    k: int = 20,
+    num_items: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-catalog dot-product scores and the exact top-k
+    (``ops/scoring.full_catalog_topk``: kernel 2 on the card). Seen items are
+    not masked (serving masks them); `num_items` masks the phantom tail.
+    Returns (top_k_indices [B, k], top_k_scores [B, k])."""
+    from gat_recommendation_torch.ops.scoring import full_catalog_topk
+
+    top_scores, top_idx = full_catalog_topk(session_embeddings, item_embeddings, k, num_items)
+    return top_idx, top_scores
+
+
+def bpr_loss_from_embeddings(
+    session_embeddings: torch.Tensor,
+    target_emb: torch.Tensor,
+    negative_emb: torch.Tensor,
+    sample_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """BPR: -log(sigmoid(pos - neg) + 1e-8), the mean over the (valid)
+    samples times their K negatives. target_emb [B, D], negative_emb [B, K, D]."""
+    pos = (session_embeddings * target_emb).sum(dim=-1)
+    neg = torch.einsum("bkd,bd->bk", negative_emb, session_embeddings)
+    per = -torch.log(F.sigmoid(pos[:, None] - neg) + 1e-8)
+    if sample_mask is None:
+        return per.mean()
+    m = sample_mask.to(per.dtype)[:, None]
+    return (per * m).sum() / (m.sum() * per.shape[1]).clamp_min(1.0)
 
 
 def apply_readout(

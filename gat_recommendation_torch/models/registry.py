@@ -20,6 +20,10 @@ _FACTORIES = {
 }
 MODEL_NAMES = tuple(_FACTORIES)
 
+# The JAX package's ``Model`` wraps a (config, init, apply) triple; here every
+# model of the registry is an ``nn.Module`` subclass of ``SessionModel``.
+Model = SessionModel
+
 
 def create_model(name: str, num_items: int, **kwargs) -> SessionModel:
     """Build a model by name; kwargs are the config fields plus `device` and

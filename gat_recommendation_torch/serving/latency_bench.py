@@ -7,8 +7,14 @@ Measures the real per-request path (the induced subgraph on the host, the
 Graph Transformer forward, full-catalog scoring with the seen items masked,
 the exact top-k) against a checkpoint in the port's format, over 200 seeded
 requests of 2 .. 11 items at k = 10. On the card unless ``--device cpu``.
-Exact scoring only: the port has no int8 candidate scorer yet (ROADMAP A7),
-so that mode is reported unavailable and skipped.
+Two scoring modes, as the JAX package's bench:
+
+  exact  float32 scores of the whole catalog and the exact top-k (kernel 2 on
+         the card);
+  int8   the Recommender's ``int8_scoring="auto"``: on a CPU device with a
+         catalog of at least 100,000 rows, the int8 candidate scan of the
+         C++ library and an exact float32 re-rank of the top 1024 candidates.
+         Elsewhere "auto" leaves it off, and the mode is logged and skipped.
 """
 
 from __future__ import annotations
@@ -53,14 +59,23 @@ def measure(rec: Recommender, reqs: list) -> dict:
 
 
 def run(checkpoint, graph_edges, num_requests: int = 200, device=None) -> dict:
-    """Load a warmed Recommender and measure the exact mode."""
-    t0 = time.perf_counter()
-    rec = Recommender(checkpoint, graph_edges, warmup=True, device=device)
-    load_s = time.perf_counter() - t0
-    results: dict = {"device": str(rec.device), "card": nvidia_smi() if rec.device.type == "cuda" else None}
-    results["exact"] = {**measure(rec, make_requests(rec.num_items, num_requests)), "load_warmup_s": load_s}
-    logger.info("exact: %s", results["exact"])
-    logger.warning("int8 scoring unavailable: the port has no int8 candidate scorer yet (ROADMAP A7)")
+    """Load a warmed Recommender per mode and measure it over the same requests."""
+    results: dict = {}
+    for mode, flag in (("exact", False), ("int8", "auto")):
+        if mode == "int8" and results["device"] != "cpu":
+            logger.warning("int8 scoring off on %s: 'auto' chooses it only on a CPU device", results["device"])
+            break
+        t0 = time.perf_counter()
+        rec = Recommender(checkpoint, graph_edges, warmup=True, device=device, int8_scoring=flag)
+        load_s = time.perf_counter() - t0
+        if mode == "exact":
+            results.update(device=str(rec.device), card=nvidia_smi() if rec.device.type == "cuda" else None)
+        elif not rec.int8_scoring:
+            logger.warning("int8 scoring unavailable (C++ library or catalog size)")
+            break
+        results[mode] = {**measure(rec, make_requests(rec.num_items, num_requests)), "load_warmup_s": load_s}
+        logger.info("%s: %s", mode, results[mode])
+        del rec
     return results
 
 

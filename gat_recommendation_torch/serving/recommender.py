@@ -12,7 +12,14 @@ the CUDA kernels of ``ops/``.
 The semantics are those of the JAX package's exact path: FFN checkpoints
 are rejected; the stored config is cross-checked against the table shape;
 self-loops are dropped from the edges; sessions are padded to node-count
-buckets. The JAX package's int8 candidate scorer for CPU hosts is not ported.
+buckets.
+
+On a CPU host with a catalog of at least ``FAST_SCORING_MIN_ROWS`` rows the
+full-catalog scan runs, as in the JAX package, through the int8 candidate
+scorer of the port's C++ library (``native/scorer.cpp``: a quarter of the
+float32 table's bytes) and an exact float32 re-rank of its top
+``max(FAST_SCORING_CANDIDATES, 8k)`` rows. The GNN forward runs on the
+Recommender's device either way (kernel 1 on the card).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gat_recommendation_torch.data import native
 from gat_recommendation_torch.data.batching import (
     SessionBatch,
     build_csr,
@@ -42,11 +50,27 @@ def _repo_root() -> Path:
     return Path(__file__).resolve().parents[2]
 
 
+# Below this catalog size the full float32 scan is already cheap and the int8
+# candidate path would only add moving parts.
+FAST_SCORING_MIN_ROWS = 100_000
+# Candidate margin of the int8 path: top-k membership is decided at L >> k,
+# where the int8 rounding error cannot demote a true top-k item out of the
+# candidates; the final order is re-ranked exactly in float32.
+FAST_SCORING_CANDIDATES = 1024
+
+
 class Recommender:
     """Loads a model checkpoint and the co-occurrence graph; serves top-k.
 
     `device` is where the model runs: ``cuda`` when None (raises without a
     CUDA device); the CPU only when the caller passes ``device="cpu"``.
+
+    `int8_scoring` "auto" (the default) scans the catalog with the int8
+    candidate scorer when the device is the CPU, the table has at least
+    ``FAST_SCORING_MIN_ROWS`` rows and the C++ library builds; True forces
+    that path on any device (the forward stays on the device, the scan runs
+    on the host) and raises without the library; False always scores the
+    whole catalog in float32 on the device (kernel 2 on the card).
     """
 
     def __init__(
@@ -56,11 +80,13 @@ class Recommender:
         buckets: tuple[int, ...] = (8, 16, 32, 56),
         warmup: bool = True,
         device=None,
+        int8_scoring: bool | str = "auto",
     ):
         self.device = resolve_device(device)
         self.buckets = tuple(buckets)
         self._load_model(Path(checkpoint_path))
         self._load_graph(Path(graph_edges_path))
+        self._setup_fast_scoring(int8_scoring)
         if warmup:
             # One request per bucket up front: builds the kernels and warms
             # the allocator, so the first real request pays neither.
@@ -106,6 +132,26 @@ class Recommender:
         keep = item_i != item_j  # self-loops are not messages
         self.graph = build_csr(item_i[keep], item_j[keep], self.num_items)
 
+    def _setup_fast_scoring(self, int8_scoring: bool | str) -> None:
+        if int8_scoring not in (True, False, "auto"):
+            raise ValueError(f"int8_scoring must be True, False or 'auto', got {int8_scoring!r}")
+        if int8_scoring is True and not native.available():
+            raise RuntimeError("int8_scoring=True, but the C++ library (native/scorer.cpp) does not build here")
+        rows = int(self.model.item_embedding.shape[0])
+        self.int8_scoring = int8_scoring is True or (
+            int8_scoring == "auto" and self.device.type == "cpu" and rows >= FAST_SCORING_MIN_ROWS
+            and native.available()
+        )
+        if not self.int8_scoring:
+            return
+        # Once at load: the float32 host copy (the re-rank reads it) and the
+        # int8 copy with per-row scales. The padding row 0 and the phantom
+        # rows past num_items get scale 0, so they are never candidates.
+        self._table_np = np.ascontiguousarray(self.model.item_embedding.detach().cpu().numpy(), dtype=np.float32)
+        self._q, self._q_scale, self._q_rowsum = native.quantize_table(self._table_np)
+        self._q_scale[0] = 0.0
+        self._q_scale[self.num_items:] = 0.0
+
     def _build_session_batch(self, items: list[int], bucket_n: int) -> SessionBatch:
         nodes = np.unique(np.asarray(items, dtype=np.int64))
         n = min(len(nodes), bucket_n)
@@ -134,6 +180,9 @@ class Recommender:
         bucket_n = _force_bucket or pick_bucket(len(set(items)), self.buckets)
         batch = self._build_session_batch(items, bucket_n)
 
+        if self.int8_scoring:
+            return self._recommend_int8(batch, items, request.k)
+
         exclude = np.zeros((padded_rows(self.num_items),), np.uint8)
         exclude[list(set(items))] = 1
         exclude[0] = 1  # padding index
@@ -146,13 +195,26 @@ class Recommender:
             )
         return top_idx[0].tolist(), top_scores[0].tolist()
 
+    def _recommend_int8(self, batch: SessionBatch, items: list[int], k: int) -> tuple[list[int], list[float]]:
+        """The model forward on the device without catalog scoring, the int8
+        candidate scan on the host, then the exact float32 re-rank of the
+        candidates (a stable descending sort, cut at k)."""
+        with torch.inference_mode():
+            sess = self.model(batch)[0].cpu().numpy()
+        seen = np.zeros((self._table_np.shape[0],), np.uint8)
+        seen[list(set(items))] = 1
+        L = max(FAST_SCORING_CANDIDATES, 8 * k)
+        cand, _ = native.score_int8_topl(self._q, self._q_scale, self._q_rowsum, sess, L, seen=seen)
+        exact = self._table_np[cand] @ sess
+        order = np.argsort(-exact, kind="stable")[:k]
+        return cand[order].tolist(), exact[order].astype(float).tolist()
+
     def health(self) -> dict:
         return {
             "num_items": self.num_items,
             "embedding_dim": self.embedding_dim,
             "checkpoint_epoch": self.checkpoint_epoch,
             "val_recall_at_10": self.val_recall_at_10,
-            # No int8 candidate scorer yet (ROADMAP A7): every score is float32.
-            "int8_scoring": False,
+            "int8_scoring": self.int8_scoring,
             "device": str(self.device),
         }

@@ -273,7 +273,8 @@ def make_chained_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
 def make_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Callable:
     """``step(batch) -> top-k item ids [B, k]`` (eval-mode forward, then
     full-catalog scoring). 'auto' is the exact two-level selector over the
-    score and chunk-max kernel; 'dense' is the one-sort oracle."""
+    score and chunk-max kernel; 'dense' is the one-sort oracle; 'approx' the
+    top of 128 candidates of the same kernel (exact in the port)."""
 
     @torch.no_grad()
     def eval_step(batch: SessionBatch) -> torch.Tensor:

@@ -177,9 +177,14 @@ def test_cross_chunk_tie_resolves_to_the_lower_index():
 
 
 def test_unknown_and_unported_methods_raise():
+    """An unknown method raises, and the kernel's wrapper refuses a table
+    that is not a multiple of 32 rows; 'approx', once unported, is now the
+    JAX package's selector (ids equal to its approx_topk on the CPU)."""
     sess, table = _normal(0, 1, 64, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_scoring.full_catalog_topk(torch.tensor(sess), torch.tensor(table), 3, method="approx")
+    got_s, got_i = port_scoring.full_catalog_topk(torch.tensor(sess), torch.tensor(table), 3, method="approx")
+    want_s, want_i = jax_scoring.full_catalog_topk(jnp.asarray(sess), jnp.asarray(table), 3, method="approx")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         port_scoring.full_catalog_topk(torch.tensor(sess), torch.tensor(table), 3, method="nope")
     with pytest.raises(ValueError, match="multiple of 32"):

@@ -117,10 +117,12 @@ def test_health_and_warmup(checkpoints, recommenders):
     assert h["num_items"] == NUM_ITEMS and h["embedding_dim"] == 16
     assert h["checkpoint_epoch"] == 3 and h["val_recall_at_10"] == 0.25
     assert h["device"] == "cpu"
-    # Every key the JAX server's GET /health sends; no int8 scorer in the port yet.
+    # Every key the JAX server's GET /health sends. "auto" on the CPU below
+    # FAST_SCORING_MIN_ROWS rows scores in float32, as the JAX rule says.
     jax_r, _ = recommenders
     assert set(jax_r.health()) <= set(h)
-    assert h["int8_scoring"] is False
+    assert NUM_ITEMS < port_rec.FAST_SCORING_MIN_ROWS
+    assert h["int8_scoring"] is False and rec.int8_scoring is False
 
 
 BODIES = [

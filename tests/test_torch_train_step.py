@@ -395,10 +395,11 @@ def test_factories_default_to_the_card_and_raise_without_one():
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    """What still raises: multi-GPU training, the approximate top-k, the
-    Recommender's refusal of an FFN checkpoint (as the JAX Recommender's),
-    an optimizer without a sparse update. The FFN branch, GAT and GraphSAGE,
-    which raised until they were ported, build on the CPU."""
+    """What still raises: multi-GPU training, the Recommender's refusal of an
+    FFN checkpoint (as the JAX Recommender's), an optimizer without a sparse
+    update. The FFN branch, GAT and GraphSAGE, which raised until they were
+    ported, build on the CPU, and the approximate top-k, which raised until
+    it was ported, returns the dense top-k."""
     from gat_recommendation_torch.ops.scoring import full_catalog_topk
     from gat_recommendation_torch.serving.recommender import Recommender
     from gat_recommendation_torch.train import checkpoint
@@ -407,8 +408,10 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
                                   laplacian_k=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         bench.main(["--mesh", "1x1"])  # multi-GPU training
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        full_catalog_topk(torch.zeros(1, 8), model.item_embedding, 5, 50, method="approx")
+    sess = torch.randn(1, 8, generator=torch.Generator().manual_seed(0))
+    approx = full_catalog_topk(sess, model.item_embedding, 5, 50, method="approx")
+    dense = full_catalog_topk(sess, model.item_embedding, 5, 50, method="dense")
+    assert torch.equal(approx[1], dense[1]) and torch.equal(approx[0], dense[0])
     ffn = registry.create_model("graph_transformer", 50, embedding_dim=8, hidden_dim=8, laplacian_k=2, device="cpu")
     checkpoint.save(tmp_path / "ffn", ffn)
     with pytest.raises(RuntimeError, match="FFN"):
