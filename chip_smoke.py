@@ -41,7 +41,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
      train shapes: attention forward and backward at B=512, N in {8, 56},
      without dropout and with dropout 0.1 from one seed (the keep bits are
      the same by construction), N in {16, 32} with dropout, two backward runs
-     bit-equal at every shape; the sparse and the dense AdamW over the full
+     bit-equal at every shape, the kernels reading the packed rows as the
+     trainers do and held bit for bit against the bool route; the sparse and the dense AdamW over the full
      467,456 x 256 table, float32 moments and bfloat16 moments with
      stochastic rounding (moments bit-equal); the score kernel at the eval
      batch of 512, also with a [B, V] exclusion mask. Times, bounds and
@@ -179,7 +180,25 @@ Phases, each fatal on failure (nothing is caught and carried on):
      requests and the dev model's p50 by stage in process, the no-op Metrics and the
      dataclass schemas where prometheus_client and pydantic are absent;
      scripts/bench_scoring once (B=512, full catalog, counted).
- 15. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 15. the study and tool scripts and the bit-packed adjacency: (f) kernel 1
+     reading the packed rows [B, N, ceil(N/8)] against its bool route (bit
+     for bit) and its plain version at (b)'s shapes (the eval forward, B=512,
+     every bucket) and (c)'s (forward and backward, B=128, every bucket, 2
+     and 4 heads), each timed beside the bool route with its bound restated
+     for the packed bytes (the checks of phases 7, 12 and 13 at the shapes of
+     the paths that copy batches to the card take the packed form too); then
+     (a) scripts.pipeline.validate_sr_onchip's three checks (counted: 2,003
+     sparse AdamW launches); (b) scripts.bench_attention at B=512 over every
+     bucket (every forward reads packed rows); (c)
+     scripts.pipeline.corpus_discrimination on a small corpus, the four
+     families at D=256 for two epochs (kernels 1-3 and node dropout
+     counted); (d) scripts.train.run_ablations on phase 13's corpus v3, two
+     ablations for one epoch (the dense step: kernel 4 counted); (e)
+     scripts.data.convert_yoochoose on 220,000 written events; (g) on every
+     path that copies batches to the card (phases 8, 11, 12 and 13) each
+     kernel 1 launch read the packed rows, and serving's none; phase 11's sessions a
+     second beside.
+ 16. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -207,6 +226,7 @@ import torch
 from gat_recommendation_torch import bench, smoke_test_all_models
 from gat_recommendation_torch.data.batching import (
     UID_SENTINEL,
+    SessionBatch,
     SessionDataset,
     iterate_batches,
     pick_bucket,
@@ -254,12 +274,17 @@ from gat_recommendation_torch.ops.session_attention import (
     session_attention_variant,
 )
 from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
-from gat_recommendation_torch.scripts import bench_scoring, evaluate_local
-from gat_recommendation_torch.scripts.data import regen_refscale
-from gat_recommendation_torch.scripts.pipeline import model_quality_gate, run_full_pipeline
+from gat_recommendation_torch.scripts import bench_attention, bench_scoring, evaluate_local
+from gat_recommendation_torch.scripts.data import convert_yoochoose, regen_refscale
+from gat_recommendation_torch.scripts.pipeline import (
+    corpus_discrimination,
+    model_quality_gate,
+    run_full_pipeline,
+    validate_sr_onchip,
+)
 from gat_recommendation_torch.scripts.serve import app as dev_app
 from gat_recommendation_torch.scripts.serve import vertex_app
-from gat_recommendation_torch.scripts.train import train_baseline
+from gat_recommendation_torch.scripts.train import run_ablations, train_baseline
 from gat_recommendation_torch.serving import app, latency_bench, schemas
 from gat_recommendation_torch.serving.recommender import Recommender
 from gat_recommendation_torch.serving.validation import validate_request
@@ -548,34 +573,47 @@ def forward_kernel(staged_before: int) -> str:
     return "staged" if session_attention.staged_launches > staged_before else "row"
 
 
-def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
+def packed_rows(adj: torch.Tensor) -> torch.Tensor:
+    """np.packbits of a bool adjacency's rows, on its device."""
+    return torch.from_numpy(np.packbits(adj.cpu().numpy(), axis=-1)).to(adj.device)
+
+
+def check_attention(B: int, N: int, gen: torch.Generator, packed: bool = False) -> dict:
+    """The eval forward at [B, N], against the plain version. `packed`: the
+    kernel reads the bit-packed rows [B, N, ceil(N / 8)] (a batch copied to
+    the card), its bits held equal to the bool route's and both timed, the
+    bound counting the adjacency bytes the route reads."""
     dev = torch.device("cuda")
     q, k, v = (torch.randn(B, N, DIM, device=dev, generator=gen) for _ in range(3))
     adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
     adj[:, 0, :] = False  # an isolated destination in every session
-    staged = session_attention.staged_launches
-    got = session_attention(q, k, v, adj, HEADS)
+    adj_read = packed_rows(adj) if packed else adj
+    staged, counted = session_attention.staged_launches, session_attention.packed_launches
+    got = session_attention(q, k, v, adj_read, HEADS, packed=packed)
     kernel = forward_kernel(staged)
+    if session_attention.packed_launches != counted + packed:
+        raise AssertionError("the packed route was not counted once")
     want = session_attention_reference(q, k, v, adj, HEADS)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ATTN_TOL)
     if not torch.all(got[:, 0] == 0):
         raise AssertionError("isolated destinations must output exact zeros")
+    if packed and not _same_bits(got, session_attention(q, k, v, adj, HEADS)):
+        raise AssertionError(f"B={B} N={N}: the packed route's bits differ from the bool route's")
     err = (got - want).abs().max().item()
 
     d = DIM // HEADS
     qh, kh, vh = (t.view(B, N, HEADS, d).transpose(1, 2) for t in (q, k, v))
     mask = adj[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    n_bytes = 4 * 4 * B * N * DIM + B * N * N  # q, k, v read, out written; adj
-    n_flops = 4 * d * HEADS * int(adj.sum())  # q.k and alpha*v over the edges present
-    bound, bound_by = bound_ms(n_bytes, n_flops)
-    return {
-        "shape": f"B={B} N={N} H={HEADS} d={d}",
+    edges = int(adj.sum())
+    (bound, bound_by), _ = attention_bounds(B, N, edges, adj_bytes=adj_read.numel())
+    row = {
+        "shape": f"B={B} N={N} H={HEADS} d={d}" + (" adj=packed" if packed else ""),
         "kernel": kernel,
         "max_abs_err": err,
         **timings(
-            lambda: session_attention(q, k, v, adj, HEADS),
+            lambda: session_attention(q, k, v, adj_read, HEADS, packed=packed),
             lambda: session_attention_reference(q, k, v, adj, HEADS),
             lambda: sdpa(qh, kh, vh, attn_mask=mask),
         ),
@@ -584,6 +622,10 @@ def check_attention(B: int, N: int, gen: torch.Generator) -> dict:
         # what an empty kernel of the row forward's grid costs, from the same kind of graph
         "launch_floor_ms": device_ms(lambda: session_attention_launch_floor(B, N, HEADS, d)) if B == 1 else None,
     }
+    if packed:
+        row["bool_ms"] = device_ms(lambda: session_attention(q, k, v, adj, HEADS))
+        row["bool_bound_ms"] = attention_bounds(B, N, edges)[0][0]
+    return row
 
 
 def check_scoring(gen: torch.Generator, B: int = 1, num_items: int = NUM_ITEMS, dim: int = DIM) -> dict:
@@ -905,39 +947,54 @@ def profile_requests(rec: Recommender, requests: list) -> dict:
 
 
 def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Generator,
-                             heads: int = HEADS, dim: int = DIM) -> dict:
+                             heads: int = HEADS, dim: int = DIM, packed: bool = False) -> dict:
     """Forward and backward at a train shape, `heads` heads of dim / heads.
     With dropout the kernels and the plain version draw the same keep bits
     from the same seed, so the same tolerances hold. The backward has no
-    atomics: two runs must give equal bits. Returns the forward's row and the
+    atomics: two runs must give equal bits. `packed`: the kernels read the
+    bit-packed rows [B, N, ceil(N / 8)] (a batch copied to the card), their
+    bits held equal to the bool route's and both timed, the bounds counting
+    the adjacency bytes the route reads. Returns the forward's row and the
     backward's row."""
     dev = torch.device("cuda")
     q, k, v, dout = (torch.randn(B, N, dim, device=dev, generator=gen) for _ in range(4))
     adj = torch.rand(B, N, N, device=dev, generator=gen) < 0.3
     adj[:, 0, :] = False  # an isolated destination in every session
+    adj_read = packed_rows(adj) if packed else adj
     seed = 0x5EED_0000_0000_0001 + N
     results = []
     staged = session_attention.staged_launches
-    for fn in (session_attention, session_attention_reference):
+    counted = (session_attention.packed_launches, session_attention.packed_backward_launches)
+    for fn, fn_adj, kw in ((session_attention, adj_read, {"packed": packed}), (session_attention_reference, adj, {})):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = fn(*leaves, adj, heads, dropout_p, seed)
+        out = fn(*leaves, fn_adj, heads, dropout_p, seed, **kw)
         results.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
     kernel = forward_kernel(staged)
+    if (session_attention.packed_launches, session_attention.packed_backward_launches) != (
+            counted[0] + packed, counted[1] + packed):
+        raise AssertionError("the packed route was not counted once forward and once backward")
     torch.cuda.synchronize()
     torch.testing.assert_close(results[0][0], results[1][0], **ATTN_TOL)
     for got, want in zip(results[0][1:], results[1][1:]):
         torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)
     if not all(torch.all(t[:, 0] == 0) for t in results[0][:2]):
         raise AssertionError("isolated destinations must give exact zeros, forward and dq")
-    again = session_attention_backward(q, k, v, adj, dout, heads, dropout_p, seed)
-    if not all(_same_bits(a, b) for a, b in zip(again, results[0][1:])):
+    again = session_attention_backward(q, k, v, adj_read, dout, heads, dropout_p, seed, packed=packed)
+    if not all(_same_bits(x, y) for x, y in zip(again, results[0][1:])):
         raise AssertionError("two runs of the attention backward must give equal bits")
+    if packed:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = session_attention(*leaves, adj, heads, dropout_p, seed)
+        if not all(_same_bits(x, y) for x, y in
+                   zip((out.detach(), *torch.autograd.grad(out, leaves, dout)), results[0])):
+            raise AssertionError(f"B={B} N={N}: the packed route's bits differ from the bool route's")
     fwd_err = (results[0][0] - results[1][0]).abs().max().item()
     bwd_err = max((g - w).abs().max().item() for g, w in zip(results[0][1:], results[1][1:]))
 
     d = dim // heads
-    shape = f"B={B} N={N} H={heads} d={d} p={dropout_p}"
-    fwd_bound, bwd_bound = attention_bounds(B, N, int(adj.sum()), heads, dim)
+    shape = f"B={B} N={N} H={heads} d={d} p={dropout_p}" + (" adj=packed" if packed else "")
+    edges = int(adj.sum())
+    fwd_bound, bwd_bound = attention_bounds(B, N, edges, heads, dim, adj_bytes=adj_read.numel())
     fwd = {"shape": shape, "kernel": kernel, "max_abs_err": fwd_err, "bound_ms": fwd_bound[0],
            "bound_by": fwd_bound[1]}
     bwd = {"shape": shape, "max_abs_err": bwd_err, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
@@ -964,48 +1021,62 @@ def check_attention_training(B: int, N: int, dropout_p: float, gen: torch.Genera
     library.inputs, library.grad = (qh, kh, vh), doh
     held = seed_on_card(seed)
     fwd.update(timings(
-        lambda: session_attention(q, k, v, adj, heads, dropout_p, held),
+        lambda: session_attention(q, k, v, adj_read, heads, dropout_p, held, packed=packed),
         lambda: plain(q, k, v),
         lambda: library(qh, kh, vh),
     ))
     both_plain, both_library = device_ms(both(plain)), device_ms(both(library))
     bwd.update({
-        "ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, heads, dropout_p, held)),
+        "ms": device_ms(lambda: session_attention_backward(q, k, v, adj_read, dout, heads, dropout_p, held,
+                                                          packed=packed)),
         # the plain and library backward: forward plus backward minus the forward
         "plain_ms": both_plain - fwd["plain_ms"],
         "library_ms": both_library - fwd["library_ms"],
-        "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj, dout, heads, dropout_p, held)),
+        "eager_ms": eager_ms(lambda: session_attention_backward(q, k, v, adj_read, dout, heads, dropout_p, held,
+                                                                packed=packed)),
     })
+    if packed:
+        fwd_bool, bwd_bool = attention_bounds(B, N, edges, heads, dim)
+        fwd.update(bool_ms=device_ms(lambda: session_attention(q, k, v, adj, heads, dropout_p, held)),
+                   bool_bound_ms=fwd_bool[0])
+        bwd.update(bool_ms=device_ms(lambda: session_attention_backward(q, k, v, adj, dout, heads, dropout_p,
+                                                                        held)),
+                   bool_bound_ms=bwd_bool[0])
     return {"forward": fwd, "backward": bwd}
 
 
-def attention_bounds(B: int, N: int, edges: int, heads: int = HEADS,
-                     dim: int = DIM) -> tuple[tuple[float, str], tuple[float, str]]:
+def attention_bounds(B: int, N: int, edges: int, heads: int = HEADS, dim: int = DIM,
+                     adj_bytes: int | None = None) -> tuple[tuple[float, str], tuple[float, str]]:
     """(forward, backward) bounds of the attention kernels for `edges` edges.
     Forward: q, k, v read, out written, adj read; two edge products (q.k and
     alpha*v) of 2*d operations each, per head. Backward: q, k, v, dO read, dq,
     dk, dv written, adj read, each once whatever the kernel reads again; five
     edge products (scores, dO.v, dV, dK, dQ). d * heads = dim whatever the
-    split."""
+    split. `adj_bytes`: B * N * N for the bool adjacency, B * N * ceil(N / 8)
+    for the packed rows."""
     d = dim // heads
-    return (bound_ms(4 * 4 * B * N * dim + B * N * N, 4 * d * heads * edges),
-            bound_ms(7 * 4 * B * N * dim + B * N * N, 10 * d * heads * edges))
+    adj_bytes = B * N * N if adj_bytes is None else adj_bytes
+    return (bound_ms(4 * 4 * B * N * dim + adj_bytes, 4 * d * heads * edges),
+            bound_ms(7 * 4 * B * N * dim + adj_bytes, 10 * d * heads * edges))
 
 
-def attention_at_adjacency(adj: torch.Tensor, gen: torch.Generator) -> dict:
-    """The train-mode attention kernels timed at a given adjacency (a training
-    batch's own, which is sparser than the random 0.3 of the checks above)."""
-    B, N, _ = adj.shape
-    q, k, v, dout = (torch.randn(B, N, DIM, device=adj.device, generator=gen) for _ in range(4))
-    edges = int(adj.sum())
-    fwd_bound, bwd_bound = attention_bounds(B, N, edges)
+def attention_at_adjacency(batch: SessionBatch, gen: torch.Generator) -> dict:
+    """The train-mode attention kernels timed at a batch's adjacency on the
+    card, in the form the trainer reads it (the packed rows), which is
+    sparser than the random 0.3 of the checks above."""
+    B, N = batch.batch_size, batch.nodes_per_session
+    q, k, v, dout = (torch.randn(B, N, DIM, device=batch.adj.device, generator=gen) for _ in range(4))
+    edges = int(batch.dense_adj().sum())
+    fwd_bound, bwd_bound = attention_bounds(B, N, edges, adj_bytes=batch.adj.numel())
     seed = seed_on_card(5)
+    adj, packed = batch.adj, batch.adj_packed
     return {
-        "shape": f"B={B} N={N} H={HEADS} d={DIM // HEADS} p={DROPOUT}",
+        "shape": f"B={B} N={N} H={HEADS} d={DIM // HEADS} p={DROPOUT}" + (" adj=packed" if packed else ""),
         "density": edges / (B * N * N),
-        "forward_ms": device_ms(lambda: session_attention(q, k, v, adj, HEADS, DROPOUT, seed)),
+        "forward_ms": device_ms(lambda: session_attention(q, k, v, adj, HEADS, DROPOUT, seed, packed=packed)),
         "forward_bound_ms": fwd_bound[0],
-        "backward_ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, DROPOUT, seed)),
+        "backward_ms": device_ms(lambda: session_attention_backward(q, k, v, adj, dout, HEADS, DROPOUT, seed,
+                                                                    packed=packed)),
         "backward_bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1],
     }
@@ -1086,13 +1157,13 @@ def _fused_adamw_library(w, mu, nu, grad, prepare=None):
 
 
 def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool,
-                       U: int = 16384, n_unique: int = 12000) -> dict:
-    """Full width, U slots (16,384 unless given): n_unique unique rows (row 0
-    among them, its summed row zeroed as the train step does) and a sentinel
-    tail."""
+                       U: int = 16384, n_unique: int = 12000, rows: int = ROWS) -> dict:
+    """Full width (`rows` rows of DIM unless given), U slots (16,384 unless
+    given): n_unique unique rows (row 0 among them, its summed row zeroed as
+    the train step does) and a sentinel tail."""
     dev = torch.device("cuda")
-    table, mu, nu = _table_state(gen, moment_dtype)
-    ids = torch.randperm(NUM_ITEMS - 1, device=dev, generator=gen)[: n_unique - 1] + 1
+    table, mu, nu = _table_state(gen, moment_dtype, rows)
+    ids = torch.randperm(min(NUM_ITEMS, rows) - 1, device=dev, generator=gen)[: n_unique - 1] + 1
     uid = torch.full((U,), 2**31 - 1, dtype=torch.int32, device=dev)
     uid[:n_unique] = torch.cat([torch.zeros(1, device=dev, dtype=torch.long), ids.sort().values]).int()
     summed = 1e-3 * torch.randn(U, DIM, device=dev, generator=gen)
@@ -1112,19 +1183,19 @@ def check_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochast
     err = (got[0] - want[0]).abs().max().item()
 
     m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
-    n_bytes = 2 * ROWS * DIM * (4 + 2 * m_bytes) + 4 * U + 4 * n_unique * DIM
-    bound, bound_by = bound_ms(n_bytes, 14 * ROWS * DIM)
+    n_bytes = 2 * rows * DIM * (4 + 2 * m_bytes) + 4 * U + 4 * n_unique * DIM
+    bound, bound_by = bound_ms(n_bytes, 14 * rows * DIM)
     grad = torch.zeros_like(table)
-    rows = uid[:n_unique].long()
+    touched = uid[:n_unique].long()
 
     def scatter():
         grad.zero_()
-        grad.index_add_(0, rows, summed[:n_unique])
+        grad.index_add_(0, touched, summed[:n_unique])
 
     row3 = step_row(3)
 
     return {
-        "shape": f"V={ROWS} D={DIM} U={U} unique={n_unique} moments={str(moment_dtype).split('.')[-1]}"
+        "shape": f"V={rows} D={DIM} U={U} unique={n_unique} moments={str(moment_dtype).split('.')[-1]}"
                  f"{'+sr' if stochastic else ''}",
         "max_abs_err": err,
         **timings(
@@ -1382,6 +1453,8 @@ def launch_counts() -> dict:
         "session_attention": session_attention.launches,
         "session_attention_staged": session_attention.staged_launches,
         "session_attention_backward": session_attention.backward_launches,
+        "session_attention_packed": session_attention.packed_launches,
+        "session_attention_backward_packed": session_attention.packed_backward_launches,
         "score_chunkmax": score_chunkmax.launches,
         "score_chunkmax_tile": score_chunkmax.tile_launches,
         "sparse_adamw": sparse_adamw.launches,
@@ -1396,6 +1469,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     session_attention.launches = session_attention.staged_launches = 0
     session_attention.backward_launches = 0
+    session_attention.packed_launches = session_attention.packed_backward_launches = 0
     score_chunkmax.launches = score_chunkmax.tile_launches = 0
     sparse_adamw.launches = embedding_adamw.launches = 0
     gather_catch_up.launches = touched_update_scatter.launches = materialize.launches = 0
@@ -1404,9 +1478,10 @@ def reset_launch_counts() -> None:
 
 def expect_counts(what: str, **want) -> dict:
     """The wrappers' counts equal `want` (0 where not named); which of a
-    wrapper's two kernels ran (the *_staged and *_tile counts) is not held."""
+    wrapper's two kernels ran (the *_staged and *_tile counts) and which
+    adjacency kernel 1 read (the *_packed counts) are not held."""
     got = launch_counts()
-    want = {**{k: 0 for k in got if not k.endswith(("_staged", "_tile"))}, **want}
+    want = {**{k: 0 for k in got if not k.endswith(("_staged", "_tile", "_packed"))}, **want}
     if {k: got[k] for k in want} != want:
         raise AssertionError(f"{what}: launch counts {got}, want {want}")
     return got
@@ -2181,7 +2256,7 @@ def profile_training(model, loss_fn, optimizer, opt_state, by_bucket: dict, epoc
     gen = torch.Generator(device="cuda").manual_seed(2)
     return {
         **walls,
-        "attention_at_batch_adjacency": [attention_at_adjacency(on_card[n][0].adj, gen) for n in (56, 8)],
+        "attention_at_batch_adjacency": [attention_at_adjacency(on_card[n][0], gen) for n in (56, 8)],
         "sessions_per_s_n56": TRAIN_BATCH / walls["sparse_step_wall_ms_n56"] * 1e3,
         **{f"{k}_sparse_step": v for k, v in busy.items()},
     }
@@ -2511,9 +2586,11 @@ def smoke_entry(child: subprocess.Popen) -> dict:
     steps = smoke_test_all_models.EPOCHS * 4
     # Per dense step with dropout: graphsage 6, gat 10, graph_transformer 18,
     # graph_transformer_optimized 4 node-dropout launches; attention forward
-    # and backward 3 + 2 (the Graph Transformers' layers).
+    # and backward 3 + 2 (the Graph Transformers' layers), every one of them
+    # on the batches' packed adjacency.
     want = {**dict.fromkeys(launches, 0), "embedding_adamw": 4 * steps, "node_dropout": 38 * steps,
-            "session_attention": 5 * steps, "session_attention_backward": 5 * steps}
+            **dict.fromkeys(("session_attention", "session_attention_backward", "session_attention_packed",
+                             "session_attention_backward_packed"), 5 * steps)}
     if rc != 0 or launches != want:
         raise AssertionError(f"smoke_test_all_models.main: rc {rc}, launch counts {launches}, want {want}")
     stdout, stderr = child.communicate(timeout=600)
@@ -2784,23 +2861,25 @@ def quickstart_kernels(gen: torch.Generator, splits: dict[str, SessionDataset], 
     trained = buckets_filled(splits["train"], splits["val"])  # the Trainer's steps and evaluations
     tested = buckets_filled(splits["test"])
     rows = {
-        "train_attention": [check_attention_training(128, N, DROPOUT, gen) for N in trained],
+        "train_attention": [check_attention_training(128, N, DROPOUT, gen, packed=True) for N in trained],
         "train_dropout": [check_node_dropout(gen, (128, N, DIM)) for N in trained],
         "train_sparse_adamw": [check_sparse_adamw(gen, torch.float32, False, U=U, n_unique=n)
                                for U, n in grad_index_sizes(splits["train"], 128)],
         "train_score": check_scoring(gen, 128),
         # --lazy-adamw --batch-size 512
-        "lazy_attention": [check_attention_training(TRAIN_BATCH, N, DROPOUT, gen) for N in trained],
+        "lazy_attention": [check_attention_training(TRAIN_BATCH, N, DROPOUT, gen, packed=True) for N in trained],
         "lazy_dropout": [check_node_dropout(gen, (TRAIN_BATCH, N, DIM)) for N in trained],
         "lazy_adamw": [check_lazy_kernels(gen, torch.float32, False, sass, U=U, n_unique=n)
                        for U, n in grad_index_sizes(splits["train"], TRAIN_BATCH)],
         "lazy_score": check_scoring(gen, TRAIN_BATCH),
-        "eval_attention": [check_attention(EVAL_BATCH, N, gen) for N in tested],
+        "eval_attention": [check_attention(EVAL_BATCH, N, gen, packed=True) for N in tested],
         "eval_score": check_scoring(gen, EVAL_BATCH),
-        # the gate's latency phase: one request a bucket to warm up, then 2-9 items a request
+        # the gate's latency phase (the Recommender, bool adjacency): one request a
+        # bucket to warm up, then 2-9 items a request
         "gate_attention": [check_attention(1, N, gen) for N in BUCKETS],
         "gate_score": check_scoring(gen, 1),
-        "pipeline_attention": [check_attention_training(PIPELINE_BATCH, N, DROPOUT, gen, heads=h, dim=PIPELINE_DIM)
+        "pipeline_attention": [check_attention_training(PIPELINE_BATCH, N, DROPOUT, gen, heads=h, dim=PIPELINE_DIM,
+                                                        packed=True)
                                for h in (2, 4) for N in pipeline["buckets"]],
         # hidden states, the Graph Transformer's FFN, GAT's attention weights
         "pipeline_dropout": [check_node_dropout(gen, shape) for N in pipeline["buckets"] for shape in
@@ -2814,39 +2893,37 @@ def quickstart_kernels(gen: torch.Generator, splits: dict[str, SessionDataset], 
     return rows
 
 
-def quickstart(gen: torch.Generator, sass: dict) -> dict:
-    """Phase 13: (a) to (f), in a temporary directory. `sass`:
-    lazy_series_sass of the built library."""
+def quickstart(gen: torch.Generator, sass: dict, workdir: Path) -> dict:
+    """Phase 13: (a) to (f), in `workdir` (corpus v3 stays in its data/
+    for phase 15). `sass`: lazy_series_sass of the built library."""
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        workdir = Path(tmp)
-        t0 = time.perf_counter()
-        out["corpus"] = quickstart_corpus(workdir / "data")
-        log(f"[phase 13] corpus {json.dumps(out['corpus'])}")
-        processed = workdir / "data" / "processed"
-        edges = load_edges(processed / "graph_edges.csv")
-        num_items = json.loads((processed / "split_info.json").read_text())["num_items"]
-        splits = {name: SessionDataset(str(processed / f"{name}.csv"), edges, num_items=num_items)
-                  for name in ("train", "val", "test")}
-        training, out["split_info"] = quickstart_training(processed, workdir, splits["val"])
-        out.update(training)
-        log(f"[phase 13] train_baseline (defaults) {json.dumps(out['train'])}")
-        log(f"[phase 13] train_baseline --lazy-adamw --batch-size 512 {json.dumps(out['lazy'])}")
-        out.update(quickstart_evaluation(processed, workdir))
-        for key in ("eval_eager", "eval_lazy", "gate"):
-            log(f"[phase 13] {key} {json.dumps(out[key])}")
-        for label in ("eager", "lazy"):  # 1.47 GB a checkpoint: gone once read
-            shutil.rmtree(workdir / label)
-        out["pipeline"] = quickstart_pipeline(processed, workdir)
-        log(f"[phase 13] run_full_pipeline {json.dumps(out['pipeline'])}")
-        out["buckets"] = {**{name: buckets_filled(ds) for name, ds in splits.items()},
-                          "pipeline": out["pipeline"]["buckets"]}
-        log(f"[phase 13] node buckets filled, most sessions first: {json.dumps(out['buckets'])}")
-        out["kernels"] = quickstart_kernels(gen, splits, out["pipeline"], sass)
-        for name, row in out["kernels"].items():
-            log(f"[phase 13] kernel {name} {json.dumps(row)}")
-        out["seconds"] = time.perf_counter() - t0
-        log(f"[phase 13] the Quickstart took {out['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    out["corpus"] = quickstart_corpus(workdir / "data")
+    log(f"[phase 13] corpus {json.dumps(out['corpus'])}")
+    processed = workdir / "data" / "processed"
+    edges = load_edges(processed / "graph_edges.csv")
+    num_items = json.loads((processed / "split_info.json").read_text())["num_items"]
+    splits = {name: SessionDataset(str(processed / f"{name}.csv"), edges, num_items=num_items)
+              for name in ("train", "val", "test")}
+    training, out["split_info"] = quickstart_training(processed, workdir, splits["val"])
+    out.update(training)
+    log(f"[phase 13] train_baseline (defaults) {json.dumps(out['train'])}")
+    log(f"[phase 13] train_baseline --lazy-adamw --batch-size 512 {json.dumps(out['lazy'])}")
+    out.update(quickstart_evaluation(processed, workdir))
+    for key in ("eval_eager", "eval_lazy", "gate"):
+        log(f"[phase 13] {key} {json.dumps(out[key])}")
+    for label in ("eager", "lazy"):  # 1.47 GB a checkpoint: gone once read
+        shutil.rmtree(workdir / label)
+    out["pipeline"] = quickstart_pipeline(processed, workdir)
+    log(f"[phase 13] run_full_pipeline {json.dumps(out['pipeline'])}")
+    out["buckets"] = {**{name: buckets_filled(ds) for name, ds in splits.items()},
+                      "pipeline": out["pipeline"]["buckets"]}
+    log(f"[phase 13] node buckets filled, most sessions first: {json.dumps(out['buckets'])}")
+    out["kernels"] = quickstart_kernels(gen, splits, out["pipeline"], sass)
+    for name, row in out["kernels"].items():
+        log(f"[phase 13] kernel {name} {json.dumps(row)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 13] the Quickstart took {out['seconds']:.1f} s")
     return out
 
 
@@ -3104,6 +3181,181 @@ def serving_rest(gen: torch.Generator) -> tuple[dict, dict]:
     return out, {"serving_int8": int8_launches, **selection_launches, "bench_scoring": bench_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the study and tool scripts, and the bit-packed adjacency
+# ---------------------------------------------------------------------------
+
+# The probe's corpus: small, all four families at D = 256 (the trainers' widths),
+# two epochs; the ablations: two of configs/ablations.yaml, one epoch.
+DISCRIMINATION_ITEMS = 30_000
+DISCRIMINATION = ["--num-sessions", "4000", "--num-items", str(DISCRIMINATION_ITEMS), "--num-active", "3000",
+                  "--num-clusters", "30", "--max-epochs", "2", "--patience", "2"]
+ABLATION_SUBSET = ["no_laplacian_pe", "loss_bpr"]
+BENCH_ATTENTION_STEPS = 50
+YOOCHOOSE_CLICKS, YOOCHOOSE_BUYS = 200_000, 20_000
+
+
+def sr_checks() -> tuple[dict, dict]:
+    """(a) scripts.pipeline.validate_sr_onchip: its three checks on the card,
+    counted (2 + 1 + 2,000 sparse AdamW launches)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = validate_sr_onchip.main([])
+    out["seconds"] = time.perf_counter() - t0
+    return out, expect_counts("validate_sr_onchip", sparse_adamw=3 + validate_sr_onchip.STEPS)
+
+
+def attention_bench() -> tuple[list, dict]:
+    """(b) scripts.bench_attention at B = 512, every bucket: the eval forward
+    with kernel 1 reading the packed rows against the plain attention."""
+    reset_launch_counts()
+    rows = bench_attention.main(["--steps", str(BENCH_ATTENTION_STEPS)])
+    counts = launch_counts()
+    if counts["session_attention"] < 1 or counts["session_attention_packed"] != counts["session_attention"] \
+            or counts["session_attention_backward"] or not all(r["adj_packed"] for r in rows):
+        raise AssertionError(f"bench_attention: every forward must read the packed rows: {counts}")
+    if not all(np.isfinite(r["kernel_ms"]) and r["kernel_ms"] > 0 for r in rows):
+        raise AssertionError(f"bench_attention: {rows}")
+    return rows, counts
+
+
+def discrimination_probe(workdir: Path) -> tuple[dict, dict]:
+    """(c) scripts.pipeline.corpus_discrimination on a small corpus, the four
+    families at D = 256 for two epochs on the card (eager sparse step, chain
+    16): a finite best recall@10 a model, the order and every pair's margin;
+    kernel 1 (packed rows: every launch), 2, 3 and node dropout launched."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = corpus_discrimination.main([*DISCRIMINATION, "--output-dir", str(workdir / "discrimination")])
+    counts = launch_counts()
+    models = out["models"]
+    if list(models) != ["graph_transformer_optimized", "graph_transformer", "gat", "graphsage"] or \
+            not all(0.0 <= m["best_recall@10"] <= 1.0 and m["epochs_run"] == 2 for m in models.values()) or \
+            len(out["pairwise_margins"]) != 6:
+        raise AssertionError(f"corpus_discrimination: {out}")
+    if min(counts[k] for k in ("session_attention", "session_attention_backward", "sparse_adamw",
+                                "score_chunkmax", "node_dropout")) < 1 or counts["embedding_adamw"] or \
+            counts["session_attention_packed"] != counts["session_attention"] or \
+            counts["session_attention_backward_packed"] != counts["session_attention_backward"]:
+        raise AssertionError(f"corpus_discrimination launches: {counts}")
+    return {"seconds": time.perf_counter() - t0, "baselines": out["baselines"], "order": out["order"],
+            "models": {k: {f: v[f] for f in ("best_recall@10", "ci95", "best_epoch", "seconds")}
+                       for k, v in models.items()},
+            "unresolved_pairs": out["unresolved_pairs"]}, counts
+
+
+def ablations(processed: Path, workdir: Path) -> tuple[dict, dict]:
+    """(d) scripts.train.run_ablations on corpus v3 (phase 13's files), two
+    ablations of configs/ablations.yaml for one epoch at full width: the dense
+    step, so kernel 4 once a step, with kernels 1 (packed rows) and 2."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    argv = ["--config", str(REPO / "configs" / "ablations.yaml"), "--ablations", *ABLATION_SUBSET,
+            "--train-sessions", str(processed / "train.csv"), "--val-sessions", str(processed / "val.csv"),
+            "--graph-edges", str(processed / "graph_edges.csv"), "--max-epochs", "1",
+            "--results-file", str(workdir / "ablation_results.json")]
+    with contextlib.chdir(workdir):  # its checkpoints go to outputs/ablations/<name> where it runs
+        out = run_ablations.main(argv)
+    shutil.rmtree(workdir / "outputs", ignore_errors=True)
+    counts = launch_counts()
+    if list(out) != ABLATION_SUBSET or not all(0.0 <= r["recall@10"] <= 1.0 for r in out.values()):
+        raise AssertionError(f"run_ablations: {out}")
+    if min(counts[k] for k in ("embedding_adamw", "session_attention", "session_attention_backward",
+                                "score_chunkmax", "node_dropout")) < 1 or counts["sparse_adamw"] or \
+            counts["session_attention_packed"] != counts["session_attention"]:
+        raise AssertionError(f"run_ablations launches: {counts}")
+    return {"seconds": time.perf_counter() - t0,
+            "results": {k: {m: v[m] for m in ("recall@10", "ndcg@10", "seconds")} for k, v in out.items()}}, counts
+
+
+def yoochoose(workdir: Path) -> dict:
+    """(e) scripts.data.convert_yoochoose on clicks and buys written in
+    YooChoose's format: every event written, in time order, in epoch ms."""
+    rng = np.random.default_rng(15)
+    base = np.datetime64("2014-04-01T00:00:00.000")
+    clicks, buys = workdir / "yoochoose-clicks.dat", workdir / "yoochoose-buys.dat"
+    for path, n, tail in ((clicks, YOOCHOOSE_CLICKS, lambda m: rng.integers(0, 12, m).astype(str)),
+                          (buys, YOOCHOOSE_BUYS, lambda m: np.char.add(rng.integers(0, 5000, m).astype(str),
+                                                                         ",1"))):
+        ts = base + rng.integers(0, 180 * 86_400_000, n).astype("timedelta64[ms]")
+        lines = np.char.add(np.char.add(np.char.add(rng.integers(1, 50_000, n).astype(str), ","),
+                                        np.char.add(ts.astype(str), "Z,")),
+                            np.char.add(np.char.add(rng.integers(214_500_000, 214_600_000, n).astype(str), ","),
+                                        tail(n)))
+        path.write_text("\n".join(lines.tolist()) + "\n")
+    t0 = time.perf_counter()
+    if convert_yoochoose.main(["--clicks-file", str(clicks), "--buys-file", str(buys),
+                               "--output-file", str(workdir / "events.csv")]) != 0:
+        raise AssertionError("convert_yoochoose failed")
+    seconds = time.perf_counter() - t0
+    events = read_csv(workdir / "events.csv")
+    ts = events["timestamp"]
+    if len(ts) != YOOCHOOSE_CLICKS + YOOCHOOSE_BUYS or np.any(np.diff(ts) < 0) or \
+            not 1_396_310_400_000 <= ts[0] < 1_396_310_400_000 + 180 * 86_400_000 or \
+            int(np.sum(events["event"] == "transaction")) != YOOCHOOSE_BUYS:
+        raise AssertionError("convert_yoochoose: the events are not all there, in time order, in epoch ms")
+    return {"events": len(ts), "seconds": seconds}
+
+
+def packed_transfer(bench_results: list, counted: dict[str, dict]) -> dict:
+    """(g) the paths that copy batches to the card read the packed rows in
+    every kernel 1 launch (phase 11's bench, phase 8's and 13's trainers);
+    serving's never. Phase 11's T32 and T1 sessions a second beside."""
+    for path, counts in counted.items():
+        want = (0, 0) if path.startswith(("serving", "latency", "zoo_serving")) else (
+            counts["session_attention"], counts["session_attention_backward"])
+        got = (counts["session_attention_packed"], counts["session_attention_backward_packed"])
+        if got != want or (want != (0, 0) and counts["session_attention"] < 1):
+            raise AssertionError(f"{path}: packed kernel 1 launches {got}, want {want}: {counts}")
+    return {"checked_paths": sorted(counted),
+            "bench_sessions_per_s": {f"chain {c} workers {w}/{tw}": r["value"]
+                                     for (c, w, tw), r in zip(BENCH_RUNS, bench_results)}}
+
+
+def studies_and_packing(gen: torch.Generator, processed: Path, bench_results: list,
+                        counted: dict[str, dict]) -> tuple[dict, dict]:
+    """Phase 15: (a)-(g); returns the results and each path's launch counts."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    # (f) the packed route at the shapes of (b) (the eval forward at B = 512)
+    # and (c) (B = 128, the two Graph Transformers' 2 and 4 heads), every bucket
+    out["bench_attention_rows"] = [check_attention(TRAIN_BATCH, N, gen, packed=True) for N in BUCKETS]
+    for row in out["bench_attention_rows"]:
+        log(f"[phase 15] (f) session_attention {json.dumps(row)}")
+    out["probe_attention"] = [check_attention_training(128, N, DROPOUT, gen, heads=h, packed=True)
+                              for h in (HEADS, ZOO_HEADS) for N in BUCKETS]
+    for row in out["probe_attention"]:
+        for part, r in row.items():
+            log(f"[phase 15] (f) session_attention {part} {json.dumps(r)}")
+    out["sr_adamw"] = check_sparse_adamw(gen, torch.bfloat16, True, U=64, n_unique=2, rows=2 * validate_sr_onchip.TILE)
+    out["probe_adamw"] = check_sparse_adamw(gen, torch.float32, False, U=2048, n_unique=1500,
+                                            rows=padded_rows(DISCRIMINATION_ITEMS))
+    out["probe_score"] = check_scoring(gen, 128, num_items=DISCRIMINATION_ITEMS)
+    for key in ("sr_adamw", "probe_adamw", "probe_score"):
+        log(f"[phase 15] {key} {json.dumps(out[key])}")
+    torch.cuda.empty_cache()
+    launches = {}
+    out["sr"], launches["validate_sr_onchip"] = sr_checks()
+    log(f"[phase 15] (a) validate_sr_onchip {json.dumps(out['sr'])}")
+    out["bench_attention"], launches["bench_attention"] = attention_bench()
+    log(f"[phase 15] (b) bench_attention {json.dumps(out['bench_attention'])}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["discrimination"], launches["corpus_discrimination"] = discrimination_probe(Path(tmp))
+    log(f"[phase 15] (c) corpus_discrimination {json.dumps(out['discrimination'])}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["ablations"], launches["run_ablations"] = ablations(processed, Path(tmp))
+        log(f"[phase 15] (d) run_ablations {json.dumps(out['ablations'])}")
+        out["yoochoose"] = yoochoose(Path(tmp))
+    log(f"[phase 15] (e) convert_yoochoose {json.dumps(out['yoochoose'])}")
+    out["transfer"] = packed_transfer(bench_results, {**counted, **launches})
+    log(f"[phase 15] (g) packed transfer {json.dumps(out['transfer'])}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 15] took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3168,6 +3420,8 @@ def main() -> int:
         raise AssertionError(f"launch counts {launches} over {n} requests, want 2 and 1 per request")
     if launches["session_attention_staged"] or launches["score_chunkmax_tile"]:
         raise AssertionError(f"a single request must not take the batch kernels: {launches}")
+    if launches["session_attention_packed"]:
+        raise AssertionError(f"serving builds a bool adjacency; no launch may read packed rows: {launches}")
     log(f"[phase 5] launches over {n} requests: {json.dumps(launches)}")
 
     # Phase 6
@@ -3178,7 +3432,7 @@ def main() -> int:
     train_attn = {}
     for N in BUCKETS:
         for p_drop in (0.0, DROPOUT) if N in (8, 56) else (DROPOUT,):
-            train_attn[(N, p_drop)] = check_attention_training(TRAIN_BATCH, N, p_drop, gen)
+            train_attn[(N, p_drop)] = check_attention_training(TRAIN_BATCH, N, p_drop, gen, packed=True)
             for part, row in train_attn[(N, p_drop)].items():
                 log(f"[phase 7] session_attention {part} {json.dumps(row)}")
     adamw = {}
@@ -3250,7 +3504,8 @@ def main() -> int:
     # Phase 12: the rest of the model zoo
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    attn_h4 = {N: check_attention_training(TRAIN_BATCH, N, DROPOUT, gen, heads=ZOO_HEADS) for N in (8, 56)}
+    attn_h4 = {N: check_attention_training(TRAIN_BATCH, N, DROPOUT, gen, heads=ZOO_HEADS, packed=True)
+               for N in (8, 56)}
     for row in attn_h4.values():
         for part, r in row.items():
             log(f"[phase 12] session_attention {part} {json.dumps(r)}")
@@ -3258,7 +3513,8 @@ def main() -> int:
     for label, row in zoo_dropout.items():
         log(f"[phase 12] node_dropout {label} {json.dumps(row)}")
     torch.cuda.empty_cache()
-    smoke_attn = [check_attention_training(SMOKE_BATCH, SMOKE_NODES, DROPOUT, gen, heads=h, dim=SMOKE_DIM)
+    smoke_attn = [check_attention_training(SMOKE_BATCH, SMOKE_NODES, DROPOUT, gen, heads=h, dim=SMOKE_DIM,
+                                           packed=True)
                   for h in SMOKE_HEADS]
     smoke_dropout = [check_node_dropout(gen, shape) for shape in SMOKE_DROPOUT_SHAPES]
     smoke_adamw = check_embedding_adamw(gen, torch.float32, False, rows=SMOKE_ROWS, dim=SMOKE_DIM)
@@ -3286,9 +3542,10 @@ def main() -> int:
     zoo_launches.update({f"zoo_serving_{name}": r["launches"] for name, r in zoo_serving.items()})
     zoo_launches["zoo_smoke"] = smoke["launches"]
 
-    # Phase 13: the Quickstart on the card
+    # Phase 13: the Quickstart on the card, in a directory that phase 15 reads too
     torch.cuda.empty_cache()
-    quick = quickstart(torch.Generator(device="cuda").manual_seed(13), series_sass)
+    quick_dir = tempfile.TemporaryDirectory()
+    quick = quickstart(torch.Generator(device="cuda").manual_seed(13), series_sass, Path(quick_dir.name))
     qk = quick["kernels"]
     quick_launches = {
         "quickstart_train": quick["train"]["launches"],
@@ -3303,7 +3560,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, rest_launches = serving_rest(torch.Generator(device="cuda").manual_seed(14))
 
-    # Phase 15: one row per kernel and path, every key in every row.
+    # Phase 15: the study and tool scripts, and the packed adjacency
+    torch.cuda.empty_cache()
+    counted = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
+               "training_chained": chained_launches, "bench_e2e": bench_launches, "latency_bench": latency_launches,
+               "serving_int8": rest_launches["serving_int8"], "quickstart_train": quick_launches["quickstart_train"],
+               "quickstart_lazy": quick_launches["quickstart_lazy"],
+               "quickstart_eval": quick_launches["quickstart_eval"],
+               "quickstart_pipeline": quick_launches["quickstart_pipeline"], **zoo_launches}
+    study, study_launches = studies_and_packing(torch.Generator(device="cuda").manual_seed(15),
+                                                Path(quick_dir.name) / "data" / "processed", bench_results,
+                                                counted)
+    quick_dir.cleanup()
+
+    # Phase 16: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -3389,6 +3659,27 @@ def main() -> int:
         ("score_chunkmax", "two_level_chunk32", with_shapes(score, score_eval),
          rest_launches["two_level_chunk32"]["score_chunkmax"]),
         ("score_chunkmax", "bench_scoring", score_eval, rest_launches["bench_scoring"]["score_chunkmax"]),
+        # Phase 15: the study and tool scripts, kernel 1 reading the packed rows.
+        ("sparse_adamw", "validate_sr_onchip", study["sr_adamw"], study_launches["validate_sr_onchip"]["sparse_adamw"]),
+        ("session_attention", "bench_attention", with_shapes(*study["bench_attention_rows"][::-1]),
+         study_launches["bench_attention"]["session_attention"]),
+        *((part, "corpus_discrimination", with_shapes(*(a[key] for a in study["probe_attention"])),
+           study_launches["corpus_discrimination"][part])
+          for part, key in (("session_attention", "forward"), ("session_attention_backward", "backward"))),
+        ("sparse_adamw", "corpus_discrimination", study["probe_adamw"],
+         study_launches["corpus_discrimination"]["sparse_adamw"]),
+        ("score_chunkmax", "corpus_discrimination", study["probe_score"],
+         study_launches["corpus_discrimination"]["score_chunkmax"]),
+        ("node_dropout", "corpus_discrimination", with_shapes(*qk["train_dropout"]),
+         study_launches["corpus_discrimination"]["node_dropout"]),
+        *((part, "run_ablations", with_shapes(*(a[key] for a in qk["train_attention"])),
+           study_launches["run_ablations"][part])
+          for part, key in (("session_attention", "forward"), ("session_attention_backward", "backward"))),
+        ("embedding_adamw", "run_ablations", adamw[("embedding_adamw", "f32")],
+         study_launches["run_ablations"]["embedding_adamw"]),
+        ("score_chunkmax", "run_ablations", qk["train_score"], study_launches["run_ablations"]["score_chunkmax"]),
+        ("node_dropout", "run_ablations", with_shapes(*qk["train_dropout"]),
+         study_launches["run_ablations"]["node_dropout"]),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3396,7 +3687,8 @@ def main() -> int:
         batch = {"session_attention": "staged", "score_chunkmax": "tile"}.get(name)
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                   "training_chained": chained_launches, "bench_e2e": bench_launches,
-                  "latency_bench": latency_launches, **zoo_launches, **quick_launches, **rest_launches}[path]
+                  "latency_bench": latency_launches, **zoo_launches, **quick_launches, **rest_launches,
+                  **study_launches}[path]
         n_batch = None if batch is None else counts[f"{name}_{batch}"]
         kernels.append({
             "name": name,

@@ -28,7 +28,16 @@
 // scores, the row max and the row sum.
 //
 // Layout: q, k, v, out and their gradients are [B, N, H*d] f32 contiguous;
-// adj is [B, N, N] uint8 (a torch bool tensor's bytes), adj[b, dst, src].
+// adj is [B, N, N] uint8 (a torch bool tensor's bytes), adj[b, dst, src], or,
+// where the caller passes packed != 0, the bit-packed transfer form of the
+// training batches, [B, N, ceil(N / 8)] uint8: np.packbits of each row, most
+// significant bit first, so source j is bit 7 - j % 8 of byte j / 8 (the JAX
+// package's data/batching.py::pack_adj). Both forms give the same bits of
+// every output: the packed rows are unpacked on the way into the kernel (a
+// lane's bit in the row forward; one byte a pair in shared memory in the
+// staged forward and the backward), and every pass after that is the same.
+// The packed form moves N / ceil(N / 8) times fewer adjacency bytes (8x at
+// N = 8, 16, 32, 56); serving keeps the byte form, which it builds itself.
 //
 // Two forward kernels; session_attention_forward chooses by the blocks the
 // first would need (kStagedMinRowBlocks below). One fmaf chain over j per
@@ -189,6 +198,45 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src, int n_r
   }
 }
 
+__host__ __device__ inline int packed_width(int N) { return (N + 7) / 8; }
+
+// Whether source j feeds the destination of adjacency row `row` (b * N + i):
+// one byte a source, or one bit of the packed row.
+__device__ __forceinline__ bool has_edge(const uint8_t* adj, long long row, int N, int j, int packed) {
+  if (packed) return (adj[row * packed_width(N) + (j >> 3)] >> (7 - (j & 7))) & 1u;
+  return adj[row * N + j] != 0;
+}
+
+// Session b's adjacency into shared memory as N x N bytes of 0 and 1, the
+// form every pass reads. A byte-per-source adjacency rides in 16-byte
+// cp.async pieces where N * N and its address allow, else byte by byte; the
+// packed rows (N * ceil(N / 8) bytes: 392 at N = 56, not a multiple of 16)
+// with plain loads, each byte spread into its eight sources. Visible after
+// the caller's barrier either way.
+__device__ __forceinline__ void stage_adjacency(uint8_t* sadj, const uint8_t* adj, long long b, int N,
+                                                int packed) {
+  if (packed) {
+    const int width = packed_width(N);
+    const uint8_t* src = adj + b * N * width;
+    for (int t = threadIdx.x; t < N * width; t += blockDim.x) {
+      const int i = t / width, j0 = 8 * (t - i * width);
+      const uint32_t bits = src[t];
+      uint8_t* dst = sadj + i * N + j0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (j0 + u < N) dst[u] = (bits >> (7 - u)) & 1u;
+      }
+    }
+    return;
+  }
+  const uint8_t* adj_b = adj + b * N * N;
+  if ((N * N) % 16 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0) {
+    for (int t = threadIdx.x * 16; t < N * N; t += blockDim.x * 16) cp_async16(sadj + t, adj_b + t);
+  } else {
+    for (int t = threadIdx.x; t < N * N; t += blockDim.x) sadj[t] = adj_b[t];
+  }
+}
+
 // ---- the row forward: one warp per destination, K and V staged per block ----
 
 constexpr int kRowWarps = 4;  // destinations of one (b, h) that share a block's K and V tiles
@@ -203,7 +251,7 @@ session_attention_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ v, const uint8_t* __restrict__ adj,
                          float* __restrict__ out, int B, int N, int H, int d, float scale,
                          float keep_prob, uint32_t keep_threshold,
-                         const unsigned long long* __restrict__ seed_p) {
+                         const unsigned long long* __restrict__ seed_p, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;
@@ -233,11 +281,12 @@ session_attention_kernel(const float* __restrict__ q, const float* __restrict__ 
   const bool active = i < N;  // the whole warp together
   bool on[2] = {false, false};
   if (active) {
-    const uint8_t* adj_row = adj + (b * N + i) * N;
+    // A byte a lane, or a bit of the packed row: at most 8 bytes, which the
+    // warp's byte loads cover (eight lanes read each).
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int j = lane + 32 * t;
-      on[t] = j < N && adj_row[j] != 0;
+      on[t] = j < N && has_edge(adj, b * N + i, N, j, packed);
     }
   }
   cp_async_wait<1>();
@@ -334,7 +383,7 @@ session_attention_staged_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v, const uint8_t* __restrict__ adj,
                                 float* __restrict__ out, int B, int N, int H, int d, float scale,
                                 float keep_prob, uint32_t keep_threshold,
-                                const unsigned long long* __restrict__ seed_p) {
+                                const unsigned long long* __restrict__ seed_p, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;          // row stride of the staged tiles
@@ -349,16 +398,9 @@ session_attention_staged_kernel(const float* __restrict__ q, const float* __rest
   const long long HD = (long long)H * d;
   const long long base = b * N * HD + (long long)h * d;
   const int d4 = d / 4;
-  const uint8_t* adj_b = adj + b * N * N;
 
   stage_two_tiles(sq, q + base, sk, k + base, N, d4, ld, HD);
-  // The adjacency rides along: 16-byte pieces where N * N and its address
-  // allow, else byte by byte (visible after the barrier below either way).
-  if ((N * N) % 16 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0) {
-    for (int t = threadIdx.x * 16; t < N * N; t += blockDim.x * 16) cp_async16(sadj + t, adj_b + t);
-  } else {
-    for (int t = threadIdx.x; t < N * N; t += blockDim.x) sadj[t] = adj_b[t];
-  }
+  stage_adjacency(sadj, adj, b, N, packed);  // rides along with the tiles
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -515,7 +557,8 @@ size_t staged_smem_bytes(int N, int d) {
 template <bool kDropout, int R>
 int launch_staged(const float* q, const float* k, const float* v, const uint8_t* adj, float* out,
                   int B, int N, int H, int d, float scale, float keep_prob,
-                  uint32_t keep_threshold, const unsigned long long* seed, cudaStream_t stream) {
+                  uint32_t keep_threshold, const unsigned long long* seed, int packed,
+                  cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -525,7 +568,7 @@ int launch_staged(const float* q, const float* k, const float* v, const uint8_t*
     opted_in = true;
   }
   session_attention_staged_kernel<kDropout, R><<<(unsigned)(B * H), staged_threads(N, d, R), staged_smem_bytes(N, d), stream>>>(
-      q, k, v, adj, out, B, N, H, d, scale, keep_prob, keep_threshold, seed);
+      q, k, v, adj, out, B, N, H, d, scale, keep_prob, keep_threshold, seed, packed);
   return 0;
 }
 
@@ -696,7 +739,7 @@ session_attention_backward_kernel(const float* __restrict__ q, const float* __re
                                   float* __restrict__ dk, float* __restrict__ dv, int B, int N,
                                   int H, int d, float scale, float keep_prob,
                                   uint32_t keep_threshold,
-                                  const unsigned long long* __restrict__ seed_p) {
+                                  const unsigned long long* __restrict__ seed_p, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = keep_threshold < kKeepAll ? *seed_p : 0ULL;  // from device memory
   const int ld = d + kTilePad;           // row stride of the staged tiles
@@ -714,15 +757,9 @@ session_attention_backward_kernel(const float* __restrict__ q, const float* __re
   const long long HD = (long long)H * d;
   const long long base = b * N * HD + (long long)h * d;
   const int d4 = d / 4;
-  const uint8_t* adj_b = adj + b * N * N;
 
   stage_two_tiles(ta, q + base, tb, k + base, N, d4, ld, HD);
-  // The adjacency rides along, as in the staged forward.
-  if ((N * N) % 16 == 0 && reinterpret_cast<uintptr_t>(adj) % 16 == 0) {
-    for (int t = threadIdx.x * 16; t < N * N; t += blockDim.x * 16) cp_async16(sadj + t, adj_b + t);
-  } else {
-    for (int t = threadIdx.x; t < N * N; t += blockDim.x) sadj[t] = adj_b[t];
-  }
+  stage_adjacency(sadj, adj, b, N, packed);  // as in the staged forward
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -876,7 +913,7 @@ template <int R>
 int launch_backward(const float* q, const float* k, const float* v, const uint8_t* adj,
                     const float* dout, float* dq, float* dk, float* dv, int B, int N, int H, int d,
                     float scale, float keep_prob, uint32_t keep_threshold,
-                    const unsigned long long* seed, cudaStream_t stream) {
+                    const unsigned long long* seed, int packed, cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -886,7 +923,7 @@ int launch_backward(const float* q, const float* k, const float* v, const uint8_
     opted_in = true;
   }
   session_attention_backward_kernel<R><<<(unsigned)(B * H), staged_threads(N, d, R), backward_smem_bytes(N, d), stream>>>(
-      q, k, v, adj, dout, dq, dk, dv, B, N, H, d, scale, keep_prob, keep_threshold, seed);
+      q, k, v, adj, dout, dq, dk, dv, B, N, H, d, scale, keep_prob, keep_threshold, seed, packed);
   return 0;
 }
 
@@ -913,11 +950,12 @@ int opt_in_rows() {
 // Shapes are checked by the Python wrapper: 1 <= N <= 64, d % 4 == 0,
 // 4 <= d <= 128, 16-byte aligned contiguous tensors. keep_threshold is
 // (1 - p_drop) * 2^24 rounded, 2^24 for no dropout; keep_prob is 1 - p_drop.
+// `packed` nonzero: adj holds the bit-packed rows [B, N, ceil(N / 8)].
 // `staged` names the forward kernel: nonzero one block per (b, h), zero one
 // warp per (b, h, i). Returns a cudaError_t.
 extern "C" int session_attention_forward_variant(const void* q, const void* k, const void* v,
-                                                 const void* adj, void* out, int B, int N, int H,
-                                                 int d, float scale, float keep_prob,
+                                                 const void* adj, int packed, void* out, int B,
+                                                 int N, int H, int d, float scale, float keep_prob,
                                                  unsigned int keep_threshold,
                                                  const void* seed, int staged, void* stream) {
   const auto* seedp = static_cast<const unsigned long long*>(seed);
@@ -932,15 +970,15 @@ extern "C" int session_attention_forward_variant(const void* q, const void* k, c
   if (staged) {
     auto* launch = dropout ? (N <= 16 ? launch_staged<true, 2> : launch_staged<true, 4>)
                            : (N <= 16 ? launch_staged<false, 2> : launch_staged<false, 4>);
-    const int err =
-        launch(qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp, s);
+    const int err = launch(qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold,
+                           seedp, packed, s);
     if (err != 0) return err;
   } else {
     const int err = opt_in_rows();
     if (err != 0) return err;
     auto* kernel = dropout ? session_attention_kernel<true> : session_attention_kernel<false>;
     kernel<<<(unsigned)((long long)B * H * row_groups(N)), kRowWarps * 32, row_smem_bytes(N, d), s>>>(
-        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp);
+        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp, packed);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -951,11 +989,11 @@ extern "C" int session_attention_takes_staged(int B, int N, int H) {
 
 // The port's entry point: the staged kernel where session_attention_takes_staged says so.
 extern "C" int session_attention_forward(const void* q, const void* k, const void* v,
-                                         const void* adj, void* out, int B, int N, int H,
-                                         int d, float scale, float keep_prob,
+                                         const void* adj, int packed, void* out, int B, int N,
+                                         int H, int d, float scale, float keep_prob,
                                          unsigned int keep_threshold, const void* seed,
                                          void* stream) {
-  return session_attention_forward_variant(q, k, v, adj, out, B, N, H, d, scale, keep_prob,
+  return session_attention_forward_variant(q, k, v, adj, packed, out, B, N, H, d, scale, keep_prob,
                                            keep_threshold, seed,
                                            session_attention_takes_staged(B, N, H), stream);
 }
@@ -972,8 +1010,8 @@ extern "C" int session_attention_launch_floor(int B, int N, int H, int d, void* 
 }
 
 extern "C" int session_attention_backward(const void* q, const void* k, const void* v,
-                                          const void* adj, const void* dout, void* dq, void* dk,
-                                          void* dv, int B, int N, int H, int d, float scale,
+                                          const void* adj, int packed, const void* dout, void* dq,
+                                          void* dk, void* dv, int B, int N, int H, int d, float scale,
                                           float keep_prob, unsigned int keep_threshold,
                                           const void* seed, void* stream) {
   if ((long long)B * H * N == 0) return 0;
@@ -983,7 +1021,7 @@ extern "C" int session_attention_backward(const void* q, const void* k, const vo
                          static_cast<const float*>(dout), static_cast<float*>(dq),
                          static_cast<float*>(dk), static_cast<float*>(dv), B, N, H, d, scale,
                          keep_prob, keep_threshold, static_cast<const unsigned long long*>(seed),
-                         static_cast<cudaStream_t>(stream));
+                         packed, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

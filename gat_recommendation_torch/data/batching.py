@@ -14,8 +14,11 @@ and ``stack_batches`` / ``stack_grad_indices`` stack a group into the [C, ...]
 payload of a chained train or eval step. ``to_device`` copies a batch and its
 index to the card from pinned memory without blocking, and
 ``prefetch_to_device`` runs such transfers ahead of the consumer on a
-background thread and, on the card, a side stream. The bit-packed transfer
-form of the adjacency is not ported yet (ROADMAP.md, queue A).
+background thread and, on the card, a side stream. Towards any device but
+the CPU, ``to_device`` bit-packs the adjacency first (``pack_adj``: 8x fewer
+bytes on the batch's largest tensor), as the JAX package does; the models
+read the packed rows through ``SessionBatch.dense_adj`` or, the Graph
+Transformer's attention kernel, as they are. CPU batches stay bool.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from gat_recommendation_torch.data.csv_io import read_csv
 from gat_recommendation_torch.device import capture_lock, resolve_device
+from gat_recommendation_torch.ops.masked import unpack_adjacency
 
 # Node-count buckets. Sessions are truncated to the last 50 events, so unique
 # context nodes <= 49 < 56; the largest bucket always fits and bigger node
@@ -54,7 +58,10 @@ class SessionBatch:
 
     node_ids    [B, N] int32 — global item ids, ascending per session, 0-padded
     node_mask   [B, N] bool  — valid node slots
-    adj         [B, N, N] bool — adj[b, dst, src] = edge src->dst (local ids)
+    adj         [B, N, N] bool — adj[b, dst, src] = edge src->dst (local ids),
+                or bit-packed [B, N, ceil(N/8)] uint8 on the way to a device
+                (``pack_adj``; ``adj_packed`` tells which, ``dense_adj()``
+                gives the bool form either way)
     num_nodes   [B] int32    — valid node count per session
     targets     [B] int32    — next-item label (last session event)
     negatives   [B, K] int32 — sampled negative item ids
@@ -78,6 +85,21 @@ class SessionBatch:
     @property
     def nodes_per_session(self) -> int:
         return int(self.node_ids.shape[1])
+
+    @property
+    def adj_packed(self) -> bool:
+        """Whether `adj` holds the bit-packed rows: uint8 of width ceil(N / 8)
+        (a dense adjacency in a batch is bool)."""
+        n = self.adj.shape[-2]
+        return self.adj.dtype == torch.uint8 and self.adj.shape[-1] == (n + 7) // 8
+
+    def dense_adj(self) -> torch.Tensor:
+        """The bool [..., N, N] adjacency, unpacked on the adjacency's device
+        where it is bit-packed (plain PyTorch, as XLA unpacks it in the JAX
+        package)."""
+        if not self.adj_packed:
+            return self.adj
+        return unpack_adjacency(self.adj, self.adj.shape[-2])
 
     def map(self, fn) -> "SessionBatch":
         """A batch of `fn(tensor)` for every field that is set."""
@@ -438,15 +460,51 @@ def chain_iterator(iterator, chain: int):
         yield pending
 
 
+def pack_adj(batch: SessionBatch) -> SessionBatch:
+    """The host batch with its bool adjacency bit-packed along the last axis,
+    [..., N, ceil(N / 8)] uint8, most significant bit first (source j is bit
+    7 - j % 8 of byte j // 8: ``np.packbits(adj, axis=-1)``); a packed batch
+    as it is. Packs in the C++ library (``data/native.py``) where it builds:
+    its call releases the interpreter lock, so that a pipeline thread packing
+    one batch does not hold up the thread that launches the steps. Else
+    ``np.packbits``, the plain version; both give the same bytes."""
+    if batch.adj_packed:
+        return batch
+    from gat_recommendation_torch.data import native
+
+    adj = batch.adj.numpy()
+    packed = native.pack_bits(adj) if native.available() else np.packbits(adj, axis=-1)
+    return dataclasses.replace(batch, adj=torch.from_numpy(packed))
+
+
+def worth_packing(device) -> bool:
+    """Packing pays where a copy to a device exists: towards the CPU the
+    'transfer' is a copy in memory, and every step would pay the unpack for
+    nothing (the JAX package's ``_worth_packing``)."""
+    return torch.device(device).type != "cpu"
+
+
+def _packed(item):
+    if isinstance(item, SessionBatch):
+        return pack_adj(item)
+    if isinstance(item, tuple) and not isinstance(item, GradIndex):
+        return tuple(_packed(part) for part in item)
+    return item
+
+
 def to_device(item, device):
     """Copy a host ``SessionBatch``, a ``GradIndex`` (numpy fields) or a tuple
-    of them to `device`. Towards a CUDA device each host tensor is copied into
-    a pinned block of the caching host allocator (which reuses a block once
-    the copy out of it has finished) and the copies do not block the host
-    (``non_blocking=True``); they are ordered on the current stream before any
-    kernel that reads them. The CUDA calls hold ``capture_lock``, so that a
-    transfer on another thread waits while a CUDA graph is being captured."""
+    of them to `device`; a batch's adjacency goes bit-packed to any device
+    but the CPU (``worth_packing``, ``pack_adj``). Towards a CUDA device each
+    host tensor is copied into a pinned block of the caching host allocator
+    (which reuses a block once the copy out of it has finished) and the
+    copies do not block the host (``non_blocking=True``); they are ordered on
+    the current stream before any kernel that reads them. The CUDA calls hold
+    ``capture_lock``, so that a transfer on another thread waits while a CUDA
+    graph is being captured."""
     device = torch.device(device)
+    if worth_packing(device):
+        item = _packed(item)
     if device.type != "cuda":
         return _copy_to(item, lambda t: t.to(device))
     with capture_lock:

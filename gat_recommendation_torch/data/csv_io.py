@@ -81,14 +81,16 @@ def _infer(fields: tuple) -> np.ndarray:
     return out
 
 
-def read_csv(path_or_file, usecols=None) -> dict:
+def read_csv(path_or_file, usecols=None, names=None) -> dict:
     """The columns of a CSV with a header line (those named in `usecols`, in
-    the file's order), each with the dtype pandas would infer (module doc)."""
+    the file's order), each with the dtype pandas would infer (module doc).
+    With `names` the file has no header line and its columns take these
+    names (pandas' ``header=None, names=...``)."""
     if isinstance(path_or_file, (str, Path)):
         with open(path_or_file, newline="") as f:
-            return read_csv(f, usecols)
+            return read_csv(f, usecols, names)
     reader = csv.reader(path_or_file)
-    header = next(reader)
+    header = list(names) if names is not None else next(reader)
     keep = [i for i, name in enumerate(header) if usecols is None or name in usecols]
     if usecols is not None and len(keep) != len(set(usecols)):
         raise ValueError(f"columns {sorted(set(usecols) - set(header))} not in the file")

@@ -13,7 +13,9 @@ place, so every process loads one complete library. Without a C++ compiler
 ``available()`` is False and ``iterate_batches(engine="auto")`` takes the
 numpy engine, as the JAX package's does; ``engine="native"`` then raises.
 
-``build_csr`` and ``assemble_batch`` are the engine's two entry points. The
+``build_csr`` and ``assemble_batch`` are the engine's two entry points, and
+``pack_bits`` bit-packs a batch's adjacency for its copy to the card
+(``data/batching.py::pack_adj``) without holding the interpreter lock. The
 engine draws negatives from a SplitMix64 stream per slot, keyed by (batch
 seed, global slot), not from the numpy engine's PCG substreams; everything
 else in a batch equals the numpy engine's.
@@ -101,6 +103,8 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64, i64, ctypes.c_uint64, i64,  # bucket_n, num_negatives, seed, slot_offset
         i32p, u8p, u8p, i32p, i32p, i32p, u8p,  # the seven output fields
     ]
+    lib.pack_bits.restype = None
+    lib.pack_bits.argtypes = [u8p, i64, i64, u8p]  # rows of n bytes -> rows of ceil(n / 8) bytes
     f32p, i8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int8)
     lib.quantize_table.restype = None
     lib.quantize_table.argtypes = [f32p, i64, ctypes.c_int32, i8p, f32p, i32p]  # table V D -> q scale rowsum
@@ -192,6 +196,18 @@ def assemble_batch(dataset, chunk, batch_size: int, bucket_n: int, seed: int, sl
         *(_ptr(a, ctypes.c_uint8 if a.dtype == np.uint8 else ctypes.c_int32) for a in out),
     )
     return SessionBatch(*(torch.from_numpy(a.view(np.bool_) if a.dtype == np.uint8 else a) for a in out))
+
+
+def pack_bits(adj: np.ndarray) -> np.ndarray:
+    """``np.packbits(adj, axis=-1)`` of a bool (or 0/1 uint8) array in the
+    C++ library: [..., n] -> [..., ceil(n / 8)] uint8, most significant bit
+    first. ctypes releases the interpreter lock for the call."""
+    lib = load()
+    bits = np.ascontiguousarray(adj).view(np.uint8)
+    n = bits.shape[-1]
+    out = np.empty((*bits.shape[:-1], (n + 7) // 8), dtype=np.uint8)
+    lib.pack_bits(_ptr(bits, ctypes.c_uint8), bits.size // max(n, 1), n, _ptr(out, ctypes.c_uint8))
+    return out
 
 
 # -- the serving-side int8 scorer (native/scorer.cpp) ------------------------

@@ -120,7 +120,7 @@ class GraphTransformer(SessionModel):
         for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             residual = x
             seeds = step_block.layer_seeds(seed, layer, self.seeds_per_layer)
-            x = conv(x, batch.adj, rate, seeds[0] if rate > 0.0 else None)
+            x = conv(x, batch.adj, rate, seeds[0] if rate > 0.0 else None, packed=batch.adj_packed)
             x = bn(x, batch.node_mask) + residual
             x = node_dropout(x, rate, seeds[1])
             if self.ffns is not None:

@@ -56,9 +56,10 @@ class GraphSAGE(SessionModel):
         """Session embeddings [B, hidden_dim] (the arguments as in ``GraphTransformer.forward``)."""
         rate, seed = self._rate_and_seed(seed)
         x = self._nodes(batch, node_embeddings)
+        adj = batch.dense_adj()  # unpacks the bit-packed transfer form once
         for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             (node_seed,) = step_block.layer_seeds(seed, layer, self.seeds_per_layer)
-            x = bn(conv(x, batch.adj), batch.node_mask)
+            x = bn(conv(x, adj), batch.node_mask)
             x = node_dropout(torch.relu(x), rate, node_seed)
         return self._pool(x, batch)
 

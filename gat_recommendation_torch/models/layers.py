@@ -62,12 +62,15 @@ class TransformerConv(nn.Module):
         adj: torch.Tensor,
         dropout_p: float = 0.0,
         seed: int | torch.Tensor | None = None,
+        packed: bool = False,
     ) -> torch.Tensor:
-        """x: [B, N, in]; adj: [B, N, N] bool. Returns [B, N, heads*head_dim].
-        `dropout_p` > 0 drops attention weights, keyed by the 64-bit `seed`
-        (an int, or a 0-dim int64 tensor on x's device holding its bits)."""
+        """x: [B, N, in]; adj: [B, N, N] bool, or with `packed` the batch's
+        bit-packed rows (``SessionBatch.adj_packed``), which kernel 1 reads as
+        they are. Returns [B, N, heads*head_dim]. `dropout_p` > 0 drops
+        attention weights, keyed by the 64-bit `seed` (an int, or a 0-dim
+        int64 tensor on x's device holding its bits)."""
         out = session_attention(
-            self.query(x), self.key(x), self.value(x), adj, self.heads, dropout_p, seed
+            self.query(x), self.key(x), self.value(x), adj, self.heads, dropout_p, seed, packed
         )
         x_r = self.skip(x)
         beta = torch.sigmoid(self.beta(torch.cat([out, x_r, out - x_r], dim=-1)))

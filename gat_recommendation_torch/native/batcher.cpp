@@ -178,4 +178,23 @@ void assemble_batch(
   }
 }
 
+// The adjacency's transfer form: `rows` rows of n bytes (nonzero = edge) to
+// rows of (n + 7) / 8 bytes, most significant bit first, numpy's
+// packbits(axis=-1): source j goes to bit 7 - j % 8 of byte j / 8, the tail
+// of a row's last byte stays 0.
+void pack_bits(const uint8_t* bits, int64_t rows, int64_t n, uint8_t* out) {
+  const int64_t width = (n + 7) / 8;
+  for (int64_t r = 0; r < rows; ++r) {
+    const uint8_t* row = bits + r * n;
+    uint8_t* dst = out + r * width;
+    for (int64_t c = 0; c < width; ++c) {
+      const int64_t j0 = 8 * c;
+      const int64_t m = std::min<int64_t>(8, n - j0);
+      uint32_t byte = 0;
+      for (int64_t u = 0; u < m; ++u) byte |= static_cast<uint32_t>(row[j0 + u] != 0) << (7 - u);
+      dst[c] = static_cast<uint8_t>(byte);
+    }
+  }
+}
+
 }  // extern "C"

@@ -27,6 +27,16 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     return e / denom.clamp_min(1e-16)
 
 
+def unpack_adjacency(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The bool [..., N, n] adjacency of its bit-packed rows [..., N,
+    ceil(n / 8)] uint8 (``np.packbits`` along the last axis, most significant
+    bit first: source j is bit 7 - j % 8 of byte j // 8), on the packed
+    tensor's device; the JAX package's ``SessionBatch.dense_adj``."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)[..., :n].bool()
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """Mean of x over `dim` counting only masked entries (empty -> 0)."""
     m = mask.to(x.dtype).unsqueeze(-1)

@@ -48,6 +48,8 @@ COUNTERS = (
     (session_attention.session_attention, "launches"),
     (session_attention.session_attention, "staged_launches"),
     (session_attention.session_attention, "backward_launches"),
+    (session_attention.session_attention, "packed_launches"),
+    (session_attention.session_attention, "packed_backward_launches"),
     (score_chunkmax.score_chunkmax, "launches"),
     (score_chunkmax.score_chunkmax, "tile_launches"),
     (sparse_adamw.sparse_adamw, "launches"),

@@ -10,10 +10,12 @@ File format (``hits_k{k}.npz``, the JAX package's): ``packed`` uint8
 [n_evals, ceil(max_n / 8)] and ``lengths`` int64 [n_evals], -1 marking an
 evaluation whose vector is unknown (one from before a resume of a run that
 did not record hits). Row i aligns with ``history["val_metrics"][i]``.
+``load_best_hits`` reads one evaluation's vector for the study scripts.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -40,3 +42,21 @@ def load_hits(path: str | Path) -> list:
         packed, lengths = d["packed"], d["lengths"]
     return [None if n < 0 else np.unpackbits(packed[i])[: int(n)].astype(np.int8)
             for i, n in enumerate(lengths)]
+
+
+def load_best_hits(model_dir: str | Path, best_epoch: int, k: int = 10):
+    """The hit vector of evaluation `best_epoch` of a study's model directory:
+    from the packed sidecar ``hits_k{k}.npz`` where it exists, else from the
+    older layout, ``history.json``'s ``val_hits@{k}`` int lists (which the
+    committed corpus-v3 studies still use). None where neither holds it."""
+    model_dir = Path(model_dir)
+    npz = model_dir / f"hits_k{k}.npz"
+    if npz.exists():
+        rows = load_hits(npz)
+        return rows[best_epoch] if best_epoch < len(rows) else None
+    hist_file = model_dir / "history.json"
+    if hist_file.exists():
+        hv = json.loads(hist_file.read_text()).get(f"val_hits@{k}")
+        if hv and best_epoch < len(hv):
+            return np.asarray(hv[best_epoch], dtype=np.int8)
+    return None

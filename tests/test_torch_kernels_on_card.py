@@ -315,6 +315,63 @@ def test_session_attention_forward_and_backward_match_plain(cuda, B, N, heads, H
     assert torch.all(grads[0][0][:, 0] == 0) and torch.all(grads[0][1][:, 0] == 0)
 
 
+def _packed(adj: torch.Tensor) -> torch.Tensor:
+    """The bit-packed rows of a bool adjacency (np.packbits, most significant bit first)."""
+    return torch.from_numpy(np.packbits(adj.cpu().numpy(), axis=-1)).to(adj.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize(
+    "B,N,heads,HD",
+    # every node bucket at the train batch (the staged forward), the Quickstart's batch 128 at N = 8 (the
+    # row forward), serving's B = 1, and N off a multiple of 8 (a packed row's last byte part-filled)
+    [(512, 56, 2, 256), (512, 32, 2, 256), (512, 16, 2, 256), (512, 8, 2, 256), (128, 8, 2, 256),
+     (1, 56, 2, 256), (3, 7, 2, 64), (9, 33, 1, 128), (2, 64, 4, 256), (1, 1, 1, 4), (300, 12, 1, 32)],
+)
+def test_packed_route_equals_the_bool_route_bit_for_bit_and_the_plain_version(cuda, B, N, heads, HD, dropout_p):
+    """Forward and backward from the bit-packed rows [B, N, ceil(N / 8)]: the
+    same bits as from the bool adjacency (every pass after the unpack is the
+    same), and the plain version's values within the tolerances."""
+    q, k, v, adj = _attn_inputs(cuda, B, N, HD, seed=N)
+    packed = _packed(adj)
+    assert packed.shape == (B, N, (N + 7) // 8)
+    dout = torch.from_numpy(np.random.default_rng(9).standard_normal((B, N, HD)).astype(np.float32)).to(cuda)
+    seed = 0x1234_5678_9ABC_DEF0
+    runs = []
+    counts = (sa.session_attention.packed_launches, sa.session_attention.packed_backward_launches)
+    for a, is_packed in ((adj, False), (packed, True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = sa.session_attention(*leaves, a, heads, dropout_p, seed, packed=is_packed)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, dout)))
+    torch.cuda.synchronize()
+    assert (sa.session_attention.packed_launches, sa.session_attention.packed_backward_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    for got, want in zip(runs[1], runs[0]):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sa.session_attention_reference(*leaves, adj, heads, dropout_p, seed)
+    plain = (out.detach(), *torch.autograd.grad(out, leaves, dout))
+    torch.testing.assert_close(runs[1][0], plain[0], **ATTN_TOL)
+    for got, want in zip(runs[1][1:], plain[1:]):
+        torch.testing.assert_close(got, want, **ATTN_GRAD_TOL)
+    for variant in ("warp", "staged"):  # both forward kernels read the packed rows
+        got = sa.session_attention_variant(q, k, v, packed, heads, dropout_p, seed, variant, packed=True)
+        want = sa.session_attention_variant(q, k, v, adj, heads, dropout_p, seed, variant)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), variant
+
+
+@pytest.mark.cuda
+def test_the_adjacency_form_is_named_not_guessed(cuda):
+    q, k, v, adj = _attn_inputs(cuda, 2, 16, 64)
+    dense_bytes = adj.to(torch.uint8)  # a dense uint8 adjacency is still dense
+    torch.testing.assert_close(sa.session_attention(q, k, v, dense_bytes, 2), sa.session_attention(q, k, v, adj, 2))
+    with pytest.raises(ValueError, match="packed adj"):
+        sa.session_attention(q, k, v, dense_bytes, 2, packed=True)
+    with pytest.raises(ValueError, match="adj"):
+        sa.session_attention(q, k, v, _packed(adj), 2)
+
+
 def _backward_both(dev, q, k, v, adj, heads, dropout_p, seed):
     dout = torch.from_numpy(
         np.random.default_rng(9).standard_normal(tuple(q.shape)).astype(np.float32)).to(dev)
@@ -875,7 +932,8 @@ def test_side_stream_prefetch_of_full_size_batches_equals_the_host_data(cuda):
     """Three hundred full-size items (B = 512, N = 56, with their GradIndex)
     through ``prefetch_to_device`` with three transfer threads: the consumer
     holds its stream back (a spin kernel) before it reads each item, frees the
-    item at once, and its device checksums must equal the host data's. A
+    item at once, and its device checksums must equal the host data's as it
+    is sent (the adjacency bit-packed). A
     read before the side stream's copies land, or an item's memory handed to
     a later copy while the consumer's stream still reads it, breaks a sum."""
     from gat_recommendation_torch.data import batching
@@ -895,7 +953,8 @@ def test_side_stream_prefetch_of_full_size_batches_equals_the_host_data(cuda):
     def checksum(item) -> torch.Tensor:
         return torch.stack([t.to(torch.int64).sum() for t in batching._tensors(item)])
 
-    want = [checksum(batching.to_device(h, "cpu")) for h in hosts]
+    # what goes to the card: the adjacency bit-packed (``to_device`` towards a card)
+    want = [checksum(batching.to_device((batching.pack_adj(b), g), "cpu")) for b, g in hosts]
     sums = []
     for item in batching.prefetch_to_device((hosts[i % 6] for i in range(300)), size=4, transfer_workers=3,
                                             device=cuda):

@@ -206,7 +206,7 @@ VERTEX_CASES = [
 ]
 
 _VERTEX_PROBE = """
-import importlib.util, json, sys, threading, urllib.error, urllib.request
+import importlib.util, json, sys, threading, time, urllib.error, urllib.request
 which, cases = sys.argv[1], json.loads(sys.argv[2])
 if which == "port":
     from gat_recommendation_torch.scripts.serve import vertex_app as v
@@ -238,6 +238,13 @@ try:
                 http.append([r.status, r.headers.get("Content-Type")])
         except urllib.error.HTTPError as e:
             http.append([e.code, e.headers.get("Content-Type")])
+    # Both servers record a request after its response is written, on the handler's
+    # thread: wait until every request above is counted before the final scrape.
+    deadline = time.monotonic() + 30
+    while (v.metrics.enabled and time.monotonic() < deadline
+           and sum(s.value for m in v.metrics.request_count.collect() for s in m.samples
+                   if s.name == "recommend_requests_total") < len(cases)):
+        time.sleep(0.01)
     with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
         scraped = r.read().decode()
 finally:
