@@ -198,7 +198,23 @@ Phases, each fatal on failure (nothing is caught and carried on):
      path that copies batches to the card (phases 8, 11, 12 and 13) each
      kernel 1 launch read the packed rows, and serving's none; phase 11's sessions a
      second beside.
- 16. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 16. the mesh (parallel/, ROADMAP A8 and B1): (a) B1, kernel 3 on each row
+     shard, at full width (467,456 x 256, U = 16,384 with 12,000 unique),
+     float32 and bf16+SR moments, the table in 1, 2, 4 and 8 shards (views of
+     one table): the shards put together EQUAL one kernel 3 call, the plain
+     twin within TABLE_TOL (moments equal), each shard timed (a graph of 20
+     calls, median of 10 replays) beside its bound, plain and library ms;
+     (b) a process group of one over NCCL (MASTER_ADDR 127.0.0.1, a free
+     port) and a 1x1 mesh: full-width Trainers (lazy, eager through B1,
+     dense through kernel 4 on the shard; dropout 0.1; 4 steps of 512, an
+     evaluation of 2 batches) against the single-GPU Trainer from the same
+     weights and batches (loss 1e-5, state 1e-6, metrics and top-k ids equal,
+     dropout masks equal, also of two simulated data ranks' halves), the lazy
+     mesh run saved and loaded on one GPU; (c) bench --mesh 1x1 --chain 1
+     against --chain 1 on phase 11's 30,000 sessions, in turns mesh, plain,
+     plain, mesh (sessions/s; the first pair with a traced epoch).
+     The mesh path's launches ((b)'s and (c)'s mesh runs) counted.
+ 17. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -209,6 +225,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -273,7 +290,16 @@ from gat_recommendation_torch.ops.session_attention import (
     session_attention_reference,
     session_attention_variant,
 )
-from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw, sparse_adamw_reference
+from gat_recommendation_torch.ops import shard
+from gat_recommendation_torch.ops.sparse_adamw import (
+    sharded_sparse_adamw,
+    sharded_sparse_adamw_reference,
+    sparse_adamw,
+    sparse_adamw_reference,
+)
+from gat_recommendation_torch.parallel import distributed
+from gat_recommendation_torch.parallel.mesh import make_mesh
+from gat_recommendation_torch.parallel.steps import active_shard
 from gat_recommendation_torch.scripts import bench_attention, bench_scoring, evaluate_local
 from gat_recommendation_torch.scripts.data import convert_yoochoose, regen_refscale
 from gat_recommendation_torch.scripts.pipeline import (
@@ -366,6 +392,7 @@ REPLACES = {
     "session_attention_backward": "gat_recommendation_tpu/ops/pallas/session_attention.py:59",
     "score_chunkmax": "gat_recommendation_tpu/ops/pallas/score_chunkmax.py:57",
     "sparse_adamw": "gat_recommendation_tpu/ops/pallas/sparse_adamw.py:117",
+    "sharded_sparse_adamw": "gat_recommendation_tpu/ops/pallas/sparse_adamw.py:207",
     "embedding_adamw": "gat_recommendation_tpu/ops/pallas/embedding_adamw.py:90",
     # No Pallas source (XLA fuses this work in the JAX package): the JAX functions they stand for.
     "lazy_gather_catch_up": "gat_recommendation_tpu/train/optimizers.py:259",
@@ -378,6 +405,7 @@ SOURCES = {
     "session_attention_backward": "gat_recommendation_torch/csrc/session_attention.cu",
     "score_chunkmax": "gat_recommendation_torch/csrc/score_chunkmax.cu",
     "sparse_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
+    "sharded_sparse_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
     "embedding_adamw": "gat_recommendation_torch/csrc/embedding_adamw.cu",
     "lazy_gather_catch_up": "gat_recommendation_torch/csrc/lazy_adamw.cu",
     "lazy_touched_update": "gat_recommendation_torch/csrc/lazy_adamw.cu",
@@ -1458,6 +1486,7 @@ def launch_counts() -> dict:
         "score_chunkmax": score_chunkmax.launches,
         "score_chunkmax_tile": score_chunkmax.tile_launches,
         "sparse_adamw": sparse_adamw.launches,
+        "sharded_sparse_adamw": sharded_sparse_adamw.launches,
         "embedding_adamw": embedding_adamw.launches,
         "lazy_gather_catch_up": gather_catch_up.launches,
         "lazy_touched_update": touched_update_scatter.launches,
@@ -1471,7 +1500,7 @@ def reset_launch_counts() -> None:
     session_attention.backward_launches = 0
     session_attention.packed_launches = session_attention.packed_backward_launches = 0
     score_chunkmax.launches = score_chunkmax.tile_launches = 0
-    sparse_adamw.launches = embedding_adamw.launches = 0
+    sparse_adamw.launches = sharded_sparse_adamw.launches = embedding_adamw.launches = 0
     gather_catch_up.launches = touched_update_scatter.launches = materialize.launches = 0
     node_dropout.launches = 0
 
@@ -3356,6 +3385,258 @@ def studies_and_packing(gen: torch.Generator, processed: Path, bench_results: li
     return out, launches
 
 
+# ---- phase 16: the mesh ----
+
+MESH_N_MODELS = (1, 2, 4, 8)
+MESH_TRAIN_STEPS, MESH_VAL_BATCHES = 4, 2  # batches of 512 a Trainer run in (b)
+MESH_TOL = dict(loss_rtol=1e-5, weight_atol=1e-6)  # the CPU tests' tolerances
+
+
+def check_sharded_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool,
+                               U: int = 16384, n_unique: int = 12000) -> list[dict]:
+    """(a) B1 at full width: the table in 1, 2, 4 and 8 row shards, views of
+    one table in one process, each shard through ``sharded_sparse_adamw`` at
+    counts 1, 2, 3. The shards put together EQUAL one kernel 3 call over the
+    whole table (table and moments); against the plain twin the table within
+    TABLE_TOL and the moments bit-equal. One row a shard: kernel ms (a graph
+    of 20 calls, median of 10 replays) and eager ms, the library call's ms
+    alike, the plain twin's from a graph of 2 calls, median of 3 (54 ms a
+    call at bf16+SR), and the bound of the shard's bytes."""
+    dev = torch.device("cuda")
+    table, mu, nu = _table_state(gen, moment_dtype)
+    ids = torch.randperm(NUM_ITEMS - 1, device=dev, generator=gen)[: n_unique - 1] + 1
+    uid = torch.full((U,), 2**31 - 1, dtype=torch.int32, device=dev)
+    uid[:n_unique] = torch.cat([torch.zeros(1, device=dev, dtype=torch.long), ids.sort().values]).int()
+    summed = 1e-3 * torch.randn(U, DIM, device=dev, generator=gen)
+    summed[0] = 0.0
+    summed[n_unique:] = 0.0
+    whole = [t.clone() for t in (table, mu, nu)]
+    for count in (1, 2, 3):
+        sparse_adamw(*whole, uid, summed, count, stochastic_rounding=stochastic, **ADAMW)
+    m_bytes = 2 if moment_dtype == torch.bfloat16 else 4
+    label = f"{str(moment_dtype).split('.')[-1]}{'+sr' if stochastic else ''}"
+    row3, rows = step_row(3), []
+    for n in MESH_N_MODELS:
+        per = ROWS // n
+        got = [t.clone() for t in (table, mu, nu)]
+        want = [t.clone() for t in (table, mu, nu)]
+        for count in (1, 2, 3):
+            for s in range(n):
+                sl = slice(s * per, (s + 1) * per)
+                sharded_sparse_adamw(*(t[sl] for t in got), uid, summed, count, shard=s, n_shards=n,
+                                     stochastic_rounding=stochastic, **ADAMW)
+                sharded_sparse_adamw_reference(*(t[sl] for t in want), uid, summed, count, shard=s, n_shards=n,
+                                               stochastic_rounding=stochastic, **ADAMW)
+        torch.cuda.synchronize()
+        if not all(_same_bits(a, b) for a, b in zip(got, whole)):
+            raise AssertionError(f"sharded_sparse_adamw: {n} shards differ from one kernel 3 call ({label})")
+        torch.testing.assert_close(got[0], want[0], **TABLE_TOL)
+        if not (_same_bits(got[1], want[1]) and _same_bits(got[2], want[2])):
+            raise AssertionError(f"sharded_sparse_adamw: {n} shards' moments differ from the plain twin ({label})")
+        err = (got[0] - want[0]).abs().max().item()
+        for s in range(n):
+            lo, hi = s * per, (s + 1) * per
+            sl = slice(lo, hi)
+            mine = (uid[:n_unique] >= lo) & (uid[:n_unique] < hi)
+            n_mine = int(mine.sum())
+            bound, bound_by = bound_ms(2 * per * DIM * (4 + 2 * m_bytes) + 4 * U + 4 * n_mine * DIM, 14 * per * DIM)
+            grad = torch.zeros(per, DIM, device=dev)
+            local = uid[:n_unique][mine].long() - lo
+            rows_mine = summed[:n_unique][mine]
+
+            def scatter(grad=grad, local=local, rows_mine=rows_mine):
+                grad.zero_()
+                grad.index_add_(0, local, rows_mine)
+
+            views = [t[sl] for t in got]
+            plain = [t[sl].clone() for t in want]
+
+            def kernel(views=views, s=s, n=n):
+                sharded_sparse_adamw(*views, uid, summed, row3, shard=s, n_shards=n,
+                                     stochastic_rounding=stochastic, **ADAMW)
+
+            library = _fused_adamw_library(*[t[sl].clone() for t in (table, mu, nu)], grad, scatter)
+            rows.append({
+                "shape": f"V={ROWS} D={DIM} U={U} unique={n_unique} moments={label} n_model={n} shard={s} "
+                         f"rows={per} own={n_mine}",
+                "n_model": n, "shard": s, "max_abs_err": err,
+                "ms": device_ms(kernel), "eager_ms": eager_ms(kernel, 10),
+                "plain_ms": device_ms(lambda plain=plain, s=s, n=n: sharded_sparse_adamw_reference(
+                    *plain, uid, summed, 3, shard=s, n_shards=n, stochastic_rounding=stochastic, **ADAMW), 2, 3),
+                "library_ms": None if library is None else device_ms(library),
+                "bound_ms": bound, "bound_by": bound_by,
+            })
+        del got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def join_nccl_group_of_one():
+    """The 1x1 mesh: a process group of this process alone over NCCL, on
+    127.0.0.1 and a free port given as torchrun would give them. No fallback:
+    a group that does not come up, or not on nccl, fails the phase."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(distributed.free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    if not distributed.initialize(device="cuda"):
+        raise AssertionError("phase 16: the launch variables did not start a process group")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"phase 16: the group runs on {torch.distributed.get_backend()}, not nccl")
+    return make_mesh(1, 1)
+
+
+def _state_of(t: Trainer) -> dict:
+    return {**t.model.state_dict(), **t.optimizer.export_state(t.opt_state, t.model)}
+
+
+def dropout_masks_under_the_mesh(mesh, model, batch: SessionBatch, row: torch.Tensor) -> dict:
+    """The keep bits of one train step's dropouts, node and attention, at the
+    batch's shapes, with the mesh's shard active against without it (EQUAL),
+    and of two data ranks' halves of the batch, each at its first session,
+    against the whole batch's draw at those rows (EQUAL)."""
+    B, N = batch.node_ids.shape
+    dev = torch.device("cuda")
+    seeds = step_block.layer_seeds(row, 0, model.seeds_per_layer)
+    ones = torch.ones(B, N, DIM, device=dev)
+    q = torch.zeros(B, N, DIM, device=dev)
+    adj = batch.adj
+    whole_node = node_dropout(ones, DROPOUT, seeds[1])
+    whole_attn = session_attention(q, q, ones, adj, HEADS, DROPOUT, seeds[0], packed=batch.adj_packed)
+    with shard.active(active_shard(model, mesh, B)):
+        mesh_node = node_dropout(ones, DROPOUT, seeds[1])
+        mesh_attn = session_attention(q, q, ones, adj, HEADS, DROPOUT, seeds[0], packed=batch.adj_packed)
+    halves = []
+    for lo, hi in ((0, B // 2), (B // 2, B)):
+        with shard.active(shard.Shard(first_session=lo)):
+            halves.append((node_dropout(ones[lo:hi], DROPOUT, seeds[1]),
+                           session_attention(q[lo:hi], q[lo:hi], ones[lo:hi], adj[lo:hi], HEADS, DROPOUT, seeds[0],
+                                             packed=batch.adj_packed)))
+    torch.cuda.synchronize()
+    out = {"node_equal": torch.equal(mesh_node, whole_node), "attention_equal": torch.equal(mesh_attn, whole_attn),
+           "halves_node_equal": torch.equal(torch.cat([h[0] for h in halves]), whole_node),
+           "halves_attention_kept_equal": torch.equal(torch.cat([h[1] for h in halves]) != 0, whole_attn != 0),
+           "node_kept_share": (whole_node != 0).float().mean().item()}
+    if not all(v for k, v in out.items() if k != "node_kept_share"):
+        raise AssertionError(f"phase 16: dropout masks differ under the mesh: {out}")
+    return out
+
+
+def mesh_against_one_gpu(mesh, epoch: list, workdir: Path) -> tuple[dict, dict]:
+    """(b) Trainers at full width (the optimized Graph Transformer, 466,865
+    items, D = 256, batch 512, dropout 0.1) on the 1x1 mesh against the
+    single-GPU Trainer from the same seeded weights and batches: an epoch of
+    MESH_TRAIN_STEPS lazy steps, then eager steps (B1), then dense steps
+    (kernel 4 on the shard), each with materialize and an evaluation of
+    MESH_VAL_BATCHES batches. Held: the epoch loss (1e-5), every tensor of
+    the state (1e-6), the metrics and the first batch's top-k ids equal, the
+    dropout masks equal; the lazy mesh run saved and loaded on one GPU.
+    Returns the results and the mesh runs' launches (counted from 0 before
+    each mesh run)."""
+    dev = torch.device("cuda")
+    train, val = epoch[:MESH_TRAIN_STEPS], epoch[MESH_TRAIN_STEPS:MESH_TRAIN_STEPS + MESH_VAL_BATCHES]
+    out, launches = {}, {}
+    for kind in ("lazy", "eager", "dense"):
+        runs = {}
+        for label, m in (("one_gpu", None), ("mesh", mesh)):
+            t = Trainer(make_training_model(DROPOUT), lambda e: iter(train), lambda: iter(val),
+                        optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=kind == "lazy"),
+                        output_dir=workdir / f"{kind}_{label}", loss_fn=create_loss_function("dual"),
+                        sparse_embedding_grads=kind != "dense", device="cuda", mesh=m)
+            t.init_state(reset_parameters=False)
+            if m is not None:
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = t.train_epoch()
+            metrics = t.evaluate()
+            tops = t._eval_step(to_device(val[0], dev))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if m is not None:
+                launches = {k: launches.get(k, 0) + v for k, v in launch_counts().items()}
+            runs[label] = (t, loss, metrics, tops, seconds)
+        (one, loss1, metrics1, tops1, s1), (mesh_t, loss2, metrics2, tops2, s2) = runs["one_gpu"], runs["mesh"]
+        if abs(loss2 - loss1) > MESH_TOL["loss_rtol"] * abs(loss1):
+            raise AssertionError(f"phase 16 {kind}: mesh loss {loss2} against one GPU's {loss1}")
+        a, b = _state_of(mesh_t), _state_of(one)
+        diff = max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+        if diff > MESH_TOL["weight_atol"] or metrics1 != metrics2 or not torch.equal(tops1, tops2):
+            raise AssertionError(f"phase 16 {kind}: mesh against one GPU: state {diff}, metrics {metrics2} / "
+                                 f"{metrics1}, ids equal {torch.equal(tops1, tops2)}")
+        out[kind] = {"loss_mesh": loss2, "loss_one_gpu": loss1, "max_state_diff": diff, "metrics": metrics2,
+                     "ids_equal": True, "seconds_mesh": s2, "seconds_one_gpu": s1}
+        if kind == "lazy":
+            batch = to_device(train[0], dev)
+            row = next_steps_block(one.model, one.optimizer, one.opt_state, [one.step_seed(0)], dev)[0]
+            out["dropout_masks"] = dropout_masks_under_the_mesh(mesh, mesh_t.model, batch, row)
+            mesh_t.save_checkpoint("latest")
+            reader = Trainer(make_training_model(DROPOUT), lambda e: iter(()), lambda: iter(()),
+                             optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
+                             output_dir=workdir / "lazy_mesh", sparse_embedding_grads=True, device="cuda")
+            reader.load_checkpoint("latest")
+            loaded = _state_of(reader)
+            same = all(torch.equal(loaded[k], v) for k, v in _state_of(mesh_t).items())
+            if not same or reader.current_epoch != 1:
+                raise AssertionError("phase 16: the mesh's checkpoint did not load on one GPU as saved")
+            out["checkpoint"] = {"loaded_on_one_gpu_equal": True, "log": mesh_t.checkpoint_log + reader.checkpoint_log}
+            del reader, loaded
+        del runs, one, mesh_t, a, b
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def bench_over_the_mesh() -> tuple[list, dict]:
+    """(c) the bench at BENCH_SESSIONS sessions, chain 1, lazy, in turns
+    ``--mesh 1x1`` (the sharded step on the 1x1 NCCL mesh), without the mesh,
+    without, with; the first pair with one traced epoch (the device's busy
+    seconds and idle share). Returns the four results and the launches of
+    the first mesh run (counted from 0)."""
+    results, launches = [], None
+    for i, mesh_shape in enumerate(((1, 1), None, None, (1, 1))):
+        reset_launch_counts()
+        result = bench.main_e2e(BENCH_SESSIONS, 3, BENCH_EPOCHS, 1, lazy=True, transfer_workers=3,
+                                mesh_shape=mesh_shape, profile=i < 2)
+        if launches is None:
+            launches = launch_counts()
+        if not (np.isfinite(result["value"]) and result["value"] > 0):
+            raise AssertionError(f"phase 16 bench: {result}")
+        if mesh_shape is not None and result["_detail"]["mesh"] != "1x1":
+            raise AssertionError(f"phase 16 bench --mesh 1x1 did not run the sharded path: {result['_detail']}")
+        results.append(result)
+        torch.cuda.empty_cache()
+    if launches["lazy_gather_catch_up"] < 1:
+        raise AssertionError(f"phase 16 bench --mesh 1x1 launched no lazy gather: {launches}")
+    return results, launches
+
+
+def mesh_phase(gen: torch.Generator, epoch: list) -> tuple[dict, dict]:
+    """Phase 16: (a) B1 at full width, (b) the 1x1 NCCL mesh's Trainers
+    against one GPU's, (c) the bench over the mesh against without it.
+    Returns the results and the mesh path's launches ((b)'s mesh runs and
+    (c)'s mesh bench)."""
+    t0 = time.perf_counter()
+    out = {"b1": {}}
+    for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
+        out["b1"][label] = check_sharded_sparse_adamw(gen, dtype, stochastic)
+        for row in out["b1"][label]:
+            log(f"[phase 16] (a) sharded_sparse_adamw {json.dumps(row)}")
+        torch.cuda.empty_cache()
+    mesh = join_nccl_group_of_one()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["trainer"], launches = mesh_against_one_gpu(mesh, epoch, Path(tmp))
+        log(f"[phase 16] (b) 1x1 NCCL mesh against one GPU {json.dumps(out['trainer'])}")
+        out["bench"], bench_launches = bench_over_the_mesh()
+    finally:
+        distributed.shutdown()
+    launches = {k: launches[k] + bench_launches[k] for k in launches}
+    for result in out["bench"]:
+        log(f"[phase 16] (c) bench {json.dumps({k: v for k, v in result.items() if k != '_detail'})} "
+            f"detail {json.dumps(result['_detail'])}")
+    log(f"[phase 16] launches on the mesh path {json.dumps(launches)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 16] took {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3573,7 +3854,12 @@ def main() -> int:
                                                 counted)
     quick_dir.cleanup()
 
-    # Phase 16: one row per kernel and path, every key in every row.
+    # Phase 16: the mesh (B1 at full width, the 1x1 NCCL mesh's Trainers, the bench over it)
+    torch.cuda.empty_cache()
+    meshed, mesh_launches = mesh_phase(torch.Generator(device="cuda").manual_seed(16), epoch)
+    b1_main = with_shapes(meshed["b1"]["f32"][0], *meshed["b1"]["f32"][1:], *meshed["b1"]["bf16+sr"])
+
+    # Phase 17: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -3680,6 +3966,17 @@ def main() -> int:
         ("score_chunkmax", "run_ablations", qk["train_score"], study_launches["run_ablations"]["score_chunkmax"]),
         ("node_dropout", "run_ablations", with_shapes(*qk["train_dropout"]),
          study_launches["run_ablations"]["node_dropout"]),
+        # Phase 16: the 1x1 NCCL mesh's Trainers and bench; B1 at the whole table (n_model = 1),
+        # its 2, 4 and 8 shards and bf16+SR moments among the shapes checked.
+        ("sharded_sparse_adamw", "mesh", b1_main, mesh_launches["sharded_sparse_adamw"]),
+        ("session_attention", "mesh", train_attn[(56, DROPOUT)]["forward"], mesh_launches["session_attention"]),
+        ("session_attention_backward", "mesh", train_attn[(56, DROPOUT)]["backward"],
+         mesh_launches["session_attention_backward"]),
+        ("score_chunkmax", "mesh", score_eval, mesh_launches["score_chunkmax"]),
+        ("embedding_adamw", "mesh", adamw[("embedding_adamw", "f32")], mesh_launches["embedding_adamw"]),
+        *((name, "mesh", lazy_rows[(name, "f32")], mesh_launches[name])
+          for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
+        ("node_dropout", "mesh", dropout_row, mesh_launches["node_dropout"]),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -3688,7 +3985,7 @@ def main() -> int:
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                   "training_chained": chained_launches, "bench_e2e": bench_launches,
                   "latency_bench": latency_launches, **zoo_launches, **quick_launches, **rest_launches,
-                  **study_launches}[path]
+                  **study_launches, "mesh": mesh_launches}[path]
         n_batch = None if batch is None else counts[f"{name}_{batch}"]
         kernels.append({
             "name": name,

@@ -16,6 +16,14 @@ Reference baseline: the optimized Graph Transformer trains one epoch of
 120,436 RetailRocket sessions in about 27 min on an NVIDIA L4 = 74.3
 sessions/s; ``vs_baseline`` = ours / 74.3.
 
+``--mesh DATAxMODEL`` runs the same epochs through the sharded steps of
+``parallel/`` (one process a GPU over torch.distributed's nccl; the table
+row-sharded over 'model', each rank assembling its data coordinate's rows of
+every global batch; chain 1 only). A 1x1 mesh on one GPU, in a process group
+of one (``parallel/distributed.single_process_group`` when no launcher
+started it), measures what the mesh machinery costs against ``--chain 1``
+without it. A mesh of more ranks than the launch has raises.
+
 Timing: the slope over epochs. A warm-up window of 1 + N epochs (every CUDA
 graph of the timed windows is captured there), then 1 epoch and 1 + N
 epochs, each fenced once at each end by a synchronising readback; an epoch
@@ -39,6 +47,7 @@ from gat_recommendation_torch.data.batching import (
     collate,
     iterate_batches,
     make_grad_index,
+    make_grad_index_from_ids,
     prefetch_to_device,
     stack_batches,
     stack_grad_indices,
@@ -49,6 +58,7 @@ from gat_recommendation_torch.device import nvidia_smi, resolve_device
 from gat_recommendation_torch.models.registry import create_model
 from gat_recommendation_torch.ops.lazy_adamw import TAIL_TERMS
 from gat_recommendation_torch.ops.rounding import mix_seed
+from gat_recommendation_torch.parallel import distributed
 from gat_recommendation_torch.train.losses import create_loss_function
 from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
 from gat_recommendation_torch.train.trainer import (
@@ -90,10 +100,12 @@ def make_corpus(num_sessions: int, num_items: int = NUM_ITEMS, seed: int = 0):
     return ds, stats
 
 
-def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = False, device=None):
+def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = False, device=None, mesh=None):
     """The optimized Graph Transformer at 256/256 (zero positional
     encodings), ``FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)``, the dual
-    loss; returns (model, optimizer, state, sparse step, chained sparse step)."""
+    loss; returns (model, optimizer, state, sparse step, chained sparse step).
+    With `mesh` the model holds its row shard and the step is the sharded
+    one (no chained step: None)."""
     device = resolve_device(device)
     model = create_model("graph_transformer_optimized", num_items, embedding_dim=256, hidden_dim=256,
                          device=device, generator=torch.Generator(device).manual_seed(0))
@@ -102,10 +114,27 @@ def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = Fa
     moment_dtype = {None: None, "both": torch.bfloat16, "mu": (torch.bfloat16, None),
                     "nu": (None, torch.bfloat16)}[bf16_moments]
     optimizer = FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, moment_dtype=moment_dtype, lazy=lazy)
-    state = optimizer.init(model)
     loss_fn = create_loss_function("dual")
+    if mesh is not None:
+        from gat_recommendation_torch.parallel import mesh as parallel_mesh, steps
+
+        parallel_mesh.shard_model(model, mesh)
+        state = optimizer.init(model)
+        return (model, optimizer, state, steps.make_sharded_sparse_train_step(model, loss_fn, optimizer, state, mesh),
+                None)
+    state = optimizer.init(model)
     return (model, optimizer, state, make_sparse_train_step(model, loss_fn, optimizer, state),
             make_chained_sparse_train_step(model, loss_fn, optimizer, state))
+
+
+def bench_mesh(shape: tuple[int, int], device: torch.device):
+    """A ('data', 'model') mesh of `shape` over the launch's process group
+    (a group of one, on a free local port, when no launcher started one)."""
+    from gat_recommendation_torch.parallel.mesh import make_mesh
+
+    if not distributed.initialize(device=device):
+        distributed.single_process_group(device)
+    return make_mesh(*shape, device=device.type)
 
 
 def _device_name(device: torch.device) -> str:
@@ -164,18 +193,30 @@ def device_busy(run) -> dict:
 
 def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, bf16_moments=None,
              lazy: bool = False, transfer_workers: int = 2, *, num_items: int = NUM_ITEMS, device=None,
-             profile: bool = False) -> dict:
+             profile: bool = False, mesh_shape: tuple[int, int] | None = None) -> dict:
     """Sessions/s over whole epochs of the host pipeline and the train step.
     `profile` adds one traced epoch after the timed windows (the device's
-    idle share over an epoch) and the touched-row statistics."""
+    idle share over an epoch) and the touched-row statistics. `mesh_shape`
+    (data, model) trains through the sharded steps (chain 1)."""
     device = resolve_device(device)
+    mesh, feed = None, {}
+    if mesh_shape is not None:
+        if chain > 1:
+            raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b); pass --chain 1")
+        from gat_recommendation_torch.parallel.mesh import coordinates
+
+        mesh = bench_mesh(mesh_shape, device)
+        feed = dict(process_index=coordinates(mesh)[0], process_count=mesh_shape[0],
+                    with_global_ids=mesh_shape[0] > 1)
     t0 = time.perf_counter()
     ds, stats = make_corpus(num_sessions, num_items)
     setup_s = time.perf_counter() - t0
-    model, optimizer, state, step, chained_step = make_training(num_items, bf16_moments, lazy, device)
+    model, optimizer, state, step, chained_step = make_training(num_items, bf16_moments, lazy, device, mesh)
 
-    def transfer(hb):
-        return to_device((hb, make_grad_index(hb)), device)
+    def transfer(item):
+        hb, meta = item if isinstance(item, tuple) else (item, None)
+        gidx = make_grad_index(hb) if meta is None or meta.ids is None else make_grad_index_from_ids(meta.ids)
+        return to_device((hb, gidx), device)
 
     def stack_group(items):
         gidxs = stack_grad_indices([make_grad_index(b) for b in items])
@@ -199,7 +240,8 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
         t0 = time.perf_counter()
         loss = None
         for e in range(n_epochs):
-            raw = iterate_batches(ds, BATCH_SIZE, shuffle=True, seed=seed0 + e, engine="native", workers=workers)
+            raw = iterate_batches(ds, BATCH_SIZE, shuffle=True, seed=seed0 + e, engine="native", workers=workers,
+                                  **feed)
             if chain > 1:
                 for entries in prefetch_to_device(chain_iterator(raw, chain), size=4, transfer=transfer_group,
                                                   transfer_workers=transfer_workers, device=device):
@@ -245,6 +287,7 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
         "transfer_workers": transfer_workers,
         "corpus_setup_s": setup_s,
         "device": _device_name(device),
+        "mesh": None if mesh_shape is None else f"{mesh_shape[0]}x{mesh_shape[1]}",
     }
     if profile:
         traced = device_busy(lambda: run_epochs(1, seed0=0))
@@ -257,6 +300,7 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
             detail["touched_rows"] = touched_rows(ds, chain, workers=workers)
     return {
         "metric": "torch_train_sessions_per_sec_per_chip_e2e"
+        + (f"_mesh{mesh_shape[0]}x{mesh_shape[1]}" if mesh_shape else "")
         + (f"_bf16mom_{bf16_moments}" if bf16_moments else "")
         + ("" if lazy else "_eager"),
         "value": sessions_per_sec,
@@ -340,22 +384,29 @@ def main(argv=None) -> None:
     p.add_argument("--chain", type=int, default=32, help="optimizer steps per dispatch (1 = unchained)")
     p.add_argument("--bf16-moments", nargs="?", const="both", default=None, choices=["both", "mu", "nu"],
                    help="bf16 moment storage with stochastic rounding; a value narrows one buffer")
-    p.add_argument("--mesh", default=None, help="DATAxMODEL: not ported (ROADMAP.md, queue A8)")
+    p.add_argument("--mesh", default=None,
+                   help="DATAxMODEL (e.g. 1x1, 2x4): the sharded steps over a mesh, one process a GPU "
+                        "(torchrun); 1x1 measures the mesh machinery on one GPU; needs --chain 1")
     p.add_argument("--lazy", action=argparse.BooleanOptionalAction, default=True,
                    help="lazy catch-up AdamW (the default); --no-lazy the eager sparse AdamW sweep")
     p.add_argument("--transfer-workers", type=int, default=3, help="host-to-device transfer threads")
     p.add_argument("--profile", action="store_true",
                    help="one more traced epoch: the device's idle share, and the touched rows")
     args = p.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: multi-GPU training is not ported yet (ROADMAP.md, queue A8)")
-    result = (
-        main_device(args.lazy)
-        if args.device
-        else main_e2e(args.sessions, args.workers, args.epochs, args.chain, args.bf16_moments, args.lazy,
-                      args.transfer_workers, profile=args.profile)
-    )
-    emit(result)
+    mesh_shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh else None
+    try:
+        result = (
+            main_device(args.lazy)
+            if args.device
+            else main_e2e(args.sessions, args.workers, args.epochs, args.chain, args.bf16_moments, args.lazy,
+                          args.transfer_workers, profile=args.profile, mesh_shape=mesh_shape)
+        )
+        primary = distributed.is_primary()  # every rank measures; rank 0 reports
+    finally:
+        if mesh_shape is not None:
+            distributed.shutdown()
+    if primary:
+        emit(result)
 
 
 def emit(result: dict) -> None:

@@ -41,7 +41,8 @@
 // the tolerance in a float32 emulation of a million elements. The b^j are float32 roundings of the host's double
 // powers, as in the JAX package. The moments are widened from bf16 on load
 // and stored as embedding_adamw.cu stores them, with the stochastic-rounding
-// counter (global row) * D + column.
+// counter (global row) * D + column (global: the row offset of a row shard
+// added, so a shard draws the bits the whole table draws at those rows).
 //
 // Design of the gather and materialize: persistent warps, in blocks of one
 // warp, as many as the card holds at once (at most one a row). Each warp
@@ -108,6 +109,7 @@ struct Hyper {
   int sr_mu, sr_nu;  // stochastic rounding of a bf16 buffer
   int count;         // materialize: the step number the table catches up to
   int terms;         // series length, <= kMaxTerms
+  long long row_offset;  // the global row of the table's row 0 (a row shard's first row)
 };
 
 // A warp's shared memory: the current row's terms (c1, c2, fac, -) and two
@@ -282,11 +284,12 @@ __device__ int g_materialize_tickets[2];
 
 // Writes a lane's 8 elements of an item (row `base` = row * D): the
 // gather's float32 rows, or materialize's table rows and moments (bf16
-// moments rounded with the counter base + column; float32 ignores it).
+// moments rounded with the counter key + base + column, key the row
+// offset's elements: the global row's counter; float32 ignores it).
 template <typename MT, typename NT>
 __device__ __forceinline__ void store_item(float* w, MT* mu, NT* nu, long long base, int c0, int d4, int lane,
                                            const float (&wv)[8], const float (&mv)[8], const float (&vv)[8],
-                                           const Hyper& hp) {
+                                           const Hyper& hp, long long key = 0) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int c = c0 + lane + 32 * k;
@@ -294,7 +297,7 @@ __device__ __forceinline__ void store_item(float* w, MT* mu, NT* nu, long long b
       const float a[4] = {wv[4 * k], wv[4 * k + 1], wv[4 * k + 2], wv[4 * k + 3]};
       const float b[4] = {mv[4 * k], mv[4 * k + 1], mv[4 * k + 2], mv[4 * k + 3]};
       const float e[4] = {vv[4 * k], vv[4 * k + 1], vv[4 * k + 2], vv[4 * k + 3]};
-      const unsigned long long idx = static_cast<unsigned long long>(base + 4 * c);
+      const unsigned long long idx = static_cast<unsigned long long>(key + base + 4 * c);
       store4(w + base + 4 * c, a);
       store4(mu + base + 4 * c, b, hp.sr_mu, hp.seed_mu, idx);
       store4(nu + base + 4 * c, e, hp.sr_nu, hp.seed_nu, idx);
@@ -315,11 +318,12 @@ gather_catch_up_kernel(const float* __restrict__ table, const MT* __restrict__ m
   WarpSmem& sm = smem[threadIdx.x >> 5];
   const long long D = 4LL * d4;
   const int target = step_block::count(step) - 1;
-  // Row id of a slot, -1 for a sentinel slot or past the end (every lane
-  // loads the same address: one transaction, and no wait until it is used).
+  // Local row of a slot, -1 for a sentinel slot, a row of another shard or
+  // past the end (every lane loads the same address: one transaction, and no
+  // wait until it is used).
   auto id_of = [&](long long slot) -> long long {
     if (slot >= U) return -1;
-    const long long id = uid[slot];
+    const long long id = uid[slot] - hp.row_offset;
     return id < 0 || id >= rows ? -1 : id;
   };
   RowQueue q(g_gather_tickets, U, lane);
@@ -368,8 +372,8 @@ touched_update_kernel(float* __restrict__ table, MT* __restrict__ mu, NT* __rest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long slot = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (slot >= U) return;
-  const long long id = uid[slot];
-  if (id < 0 || id >= rows) return;  // sentinel slot: dropped
+  const long long id = uid[slot] - hp.row_offset;  // the local row
+  if (id < 0 || id >= rows) return;  // sentinel slot or another shard's row: dropped
   const float bc1 = step_block::as_float(step, step_block::kBc1);
   const float bc2 = step_block::as_float(step, step_block::kBc2);
   const unsigned long long seed_mu = step_block::as_seed(step, step_block::kSeedMu);
@@ -391,7 +395,7 @@ touched_update_kernel(float* __restrict__ table, MT* __restrict__ mu, NT* __rest
                                   __fmul_rn(hp.wd, w[t]));
       w[t] = __fsub_rn(w[t], __fmul_rn(hp.lr, upd));
     }
-    const unsigned long long idx = static_cast<unsigned long long>(out + 4 * c);
+    const unsigned long long idx = static_cast<unsigned long long>((id + hp.row_offset) * 4LL * d4 + 4 * c);
     store4(table + out + 4 * c, w);
     store4(mu + out + 4 * c, m, hp.sr_mu, seed_mu, idx);
     store4(nu + out + 4 * c, v, hp.sr_nu, seed_nu, idx);
@@ -429,7 +433,7 @@ materialize_kernel(float* __restrict__ table, MT* __restrict__ mu, NT* __restric
       float w[8], mv[8], v[8];
       read_item<MT, NT>(sm.stage[st], lane, w, mv, v);
       catch_up8(hp, s, sm.terms, w, mv, v);
-      store_item(table, mu, nu, q.cur * D, c0, d4, lane, w, mv, v, hp);
+      store_item(table, mu, nu, q.cur * D, c0, d4, lane, w, mv, v, hp, hp.row_offset * D);
     }
     if (last) {
       if (lane == 0) last_step[q.cur] = hp.count;
@@ -496,15 +500,20 @@ void with_moments(void* mu, void* nu, int mu_bf16, int nu_bf16, Fn fn) {
 // f32 with D % 4 == 0, mu and nu [rows, D] f32 or bf16, last_step [rows] int32,
 // uid [U] int32 unique, w_c / mu_c / nu_c / summed [U, D] f32, all contiguous
 // and 16-byte aligned; 1 <= terms <= 64; `step` is the device address of the
-// step's row of the step block (int64 fields, step_block.cuh). Each returns
+// step's row of the step block (int64 fields, step_block.cuh). `row_offset`
+// is the global row of table row 0 (0 for a whole table; shard * rows for a
+// row shard under a mesh): uid holds global rows, and a uid outside [row_offset,
+// row_offset + rows) gathers zeros and writes nothing. Each returns
 // cudaGetLastError().
 extern "C" int lazy_gather_catch_up(const void* table, const void* mu, const void* nu,
                                     const void* last_step, const void* uid, void* w_c, void* mu_c,
-                                    void* nu_c, const void* step, int U, long long rows, int D,
-                                    int mu_bf16, int nu_bf16, int terms, float lr, float eps,
-                                    float ln_b1, float ln_b2, float a_log, const float* b1_pow,
-                                    const float* b2_pow, void* stream) {
-  const Hyper hp = catch_up_hyper(0, terms, lr, eps, ln_b1, ln_b2, a_log, b1_pow, b2_pow);
+                                    void* nu_c, const void* step, int U, long long rows,
+                                    long long row_offset, int D, int mu_bf16, int nu_bf16,
+                                    int terms, float lr, float eps, float ln_b1, float ln_b2,
+                                    float a_log, const float* b1_pow, const float* b2_pow,
+                                    void* stream) {
+  Hyper hp = catch_up_hyper(0, terms, lr, eps, ln_b1, ln_b2, a_log, b1_pow, b2_pow);
+  hp.row_offset = row_offset;
   if (U > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     with_moments(const_cast<void*>(mu), const_cast<void*>(nu), mu_bf16, nu_bf16, [&](auto* m, auto* n) {
@@ -521,12 +530,12 @@ extern "C" int lazy_gather_catch_up(const void* table, const void* mu, const voi
 extern "C" int lazy_touched_update(void* table, void* mu, void* nu, void* last_step,
                                    const void* uid, const void* w_c, const void* mu_c,
                                    const void* nu_c, const void* summed, const void* step, int U,
-                                   long long rows, int D, int mu_bf16, int nu_bf16, int sr_mu,
-                                   int sr_nu, float lr, float b1, float b2, float eps, float wd,
-                                   float omb1, float omb2, void* stream) {
+                                   long long rows, long long row_offset, int D, int mu_bf16,
+                                   int nu_bf16, int sr_mu, int sr_nu, float lr, float b1, float b2,
+                                   float eps, float wd, float omb1, float omb2, void* stream) {
   Hyper hp = {};
   hp.lr = lr, hp.eps = eps, hp.wd = wd, hp.b1 = b1, hp.b2 = b2, hp.omb1 = omb1, hp.omb2 = omb2;
-  hp.sr_mu = sr_mu, hp.sr_nu = sr_nu;
+  hp.sr_mu = sr_mu, hp.sr_nu = sr_nu, hp.row_offset = row_offset;
   if (U > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     with_moments(mu, nu, mu_bf16, nu_bf16, [&](auto* m, auto* n) {
@@ -542,13 +551,15 @@ extern "C" int lazy_touched_update(void* table, void* mu, void* nu, void* last_s
 }
 
 extern "C" int lazy_materialize(void* table, void* mu, void* nu, void* last_step, long long rows,
-                                int D, int mu_bf16, int nu_bf16, int sr_mu, int sr_nu,
+                                long long row_offset, int D, int mu_bf16, int nu_bf16, int sr_mu,
+                                int sr_nu,
                                 unsigned long long seed_mu, unsigned long long seed_nu, int count,
                                 int terms, float lr, float eps, float ln_b1, float ln_b2,
                                 float a_log, const float* b1_pow, const float* b2_pow,
                                 void* stream) {
   Hyper hp = catch_up_hyper(count, terms, lr, eps, ln_b1, ln_b2, a_log, b1_pow, b2_pow);
   hp.seed_mu = seed_mu, hp.seed_nu = seed_nu, hp.sr_mu = sr_mu, hp.sr_nu = sr_nu;
+  hp.row_offset = row_offset;
   if (rows > 0) {
     auto* s = static_cast<cudaStream_t>(stream);
     with_moments(mu, nu, mu_bf16, nu_bf16, [&](auto* m, auto* n) {

@@ -12,9 +12,11 @@
 //     p_j   = keep(b, h, i, j) ? a_j / (1 - p_drop) : 0     (train mode only)
 //     out_i = sum_j p_j * v_j
 // so a destination with no in-edges outputs exact zeros. keep() is a pure
-// function of (seed, b, h, i, j): bit 8.. of counter_hash(seed, linear index)
-// below (1 - p_drop) * 2^24. No mask tensor is stored; the backward draws the
-// same bits from the same seed. The seed is read from device memory (the
+// function of (seed, b0 + b, h, i, j): bit 8.. of counter_hash(seed, linear
+// index) below (1 - p_drop) * 2^24, b0 the global index of the batch's first
+// session (0 on one GPU; a data rank's first row of the global batch under a
+// mesh). No mask tensor is stored; the backward draws the same bits from the
+// same seed. The seed is read from device memory (the
 // layer's field of the step's row of the step block, ops/step_block.py), so
 // that a CUDA graph of the train step replays each step with its own seed; the
 // kernels without dropout never read it.
@@ -251,7 +253,7 @@ session_attention_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ v, const uint8_t* __restrict__ adj,
                          float* __restrict__ out, int B, int N, int H, int d, float scale,
                          float keep_prob, uint32_t keep_threshold,
-                         const unsigned long long* __restrict__ seed_p, int packed) {
+                         const unsigned long long* __restrict__ seed_p, long long b0, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;
@@ -335,7 +337,7 @@ session_attention_kernel(const float* __restrict__ q, const float* __restrict__ 
     float a1 = e1 * inv;
     if (kDropout) {
       const float inv_keep = 1.f / keep_prob;
-      const unsigned long long row = ((unsigned long long)(b * H + h) * N + i) * N;
+      const unsigned long long row = ((unsigned long long)((b0 + b) * H + h) * N + i) * N;
       a0 = (counter_hash(seed, row + lane) >> 8) < keep_threshold ? a0 * inv_keep : 0.f;
       a1 = (counter_hash(seed, row + lane + 32) >> 8) < keep_threshold ? a1 * inv_keep : 0.f;
     }
@@ -383,7 +385,7 @@ session_attention_staged_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v, const uint8_t* __restrict__ adj,
                                 float* __restrict__ out, int B, int N, int H, int d, float scale,
                                 float keep_prob, uint32_t keep_threshold,
-                                const unsigned long long* __restrict__ seed_p, int packed) {
+                                const unsigned long long* __restrict__ seed_p, long long b0, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = kDropout ? *seed_p : 0ULL;  // the step's seed, from device memory
   const int ld = d + kTilePad;          // row stride of the staged tiles
@@ -489,7 +491,7 @@ session_attention_staged_kernel(const float* __restrict__ q, const float* __rest
       a[u][0] = e0 * inv;
       a[u][1] = e1 * inv;
       if (kDropout) {
-        const unsigned long long row = ((unsigned long long)(b * H + h) * N + i) * N;
+        const unsigned long long row = ((unsigned long long)((b0 + b) * H + h) * N + i) * N;
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
           const bool keep = (counter_hash(seed, row + lane + 32 * t) >> 8) < keep_threshold;
@@ -557,8 +559,8 @@ size_t staged_smem_bytes(int N, int d) {
 template <bool kDropout, int R>
 int launch_staged(const float* q, const float* k, const float* v, const uint8_t* adj, float* out,
                   int B, int N, int H, int d, float scale, float keep_prob,
-                  uint32_t keep_threshold, const unsigned long long* seed, int packed,
-                  cudaStream_t stream) {
+                  uint32_t keep_threshold, const unsigned long long* seed, long long b0,
+                  int packed, cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -568,7 +570,7 @@ int launch_staged(const float* q, const float* k, const float* v, const uint8_t*
     opted_in = true;
   }
   session_attention_staged_kernel<kDropout, R><<<(unsigned)(B * H), staged_threads(N, d, R), staged_smem_bytes(N, d), stream>>>(
-      q, k, v, adj, out, B, N, H, d, scale, keep_prob, keep_threshold, seed, packed);
+      q, k, v, adj, out, B, N, H, d, scale, keep_prob, keep_threshold, seed, b0, packed);
   return 0;
 }
 
@@ -739,7 +741,7 @@ session_attention_backward_kernel(const float* __restrict__ q, const float* __re
                                   float* __restrict__ dk, float* __restrict__ dv, int B, int N,
                                   int H, int d, float scale, float keep_prob,
                                   uint32_t keep_threshold,
-                                  const unsigned long long* __restrict__ seed_p, int packed) {
+                                  const unsigned long long* __restrict__ seed_p, long long b0, int packed) {
   extern __shared__ __align__(16) float smem[];
   const unsigned long long seed = keep_threshold < kKeepAll ? *seed_p : 0ULL;  // from device memory
   const int ld = d + kTilePad;           // row stride of the staged tiles
@@ -810,7 +812,7 @@ session_attention_backward_kernel(const float* __restrict__ q, const float* __re
       for (int t = 0; t < 2; ++t) {
         p[u][t] = a[u][t];
         if (dropout) {
-          const unsigned long long row = ((unsigned long long)(b * H + h) * N + i) * N;
+          const unsigned long long row = ((unsigned long long)((b0 + b) * H + h) * N + i) * N;
           const bool keep = (counter_hash(seed, row + lane + 32 * t) >> 8) < keep_threshold;
           p[u][t] = keep ? a[u][t] * inv_keep : 0.f;
         }
@@ -913,7 +915,7 @@ template <int R>
 int launch_backward(const float* q, const float* k, const float* v, const uint8_t* adj,
                     const float* dout, float* dq, float* dk, float* dv, int B, int N, int H, int d,
                     float scale, float keep_prob, uint32_t keep_threshold,
-                    const unsigned long long* seed, int packed, cudaStream_t stream) {
+                    const unsigned long long* seed, long long b0, int packed, cudaStream_t stream) {
   static bool opted_in = false;  // the largest tile set the wrapper admits: N = 64, d = 128
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -923,7 +925,7 @@ int launch_backward(const float* q, const float* k, const float* v, const uint8_
     opted_in = true;
   }
   session_attention_backward_kernel<R><<<(unsigned)(B * H), staged_threads(N, d, R), backward_smem_bytes(N, d), stream>>>(
-      q, k, v, adj, dout, dq, dk, dv, B, N, H, d, scale, keep_prob, keep_threshold, seed, packed);
+      q, k, v, adj, dout, dq, dk, dv, B, N, H, d, scale, keep_prob, keep_threshold, seed, b0, packed);
   return 0;
 }
 
@@ -952,12 +954,16 @@ int opt_in_rows() {
 // (1 - p_drop) * 2^24 rounded, 2^24 for no dropout; keep_prob is 1 - p_drop.
 // `packed` nonzero: adj holds the bit-packed rows [B, N, ceil(N / 8)].
 // `staged` names the forward kernel: nonzero one block per (b, h), zero one
-// warp per (b, h, i). Returns a cudaError_t.
+// warp per (b, h, i). b0 is the global index of session 0 of this batch: the
+// dropout bits of (b, h, i, j) are those of (b0 + b, h, i, j), so a data rank
+// holding sessions [b0, b0 + B) of a larger batch draws that batch's bits.
+// Returns a cudaError_t.
 extern "C" int session_attention_forward_variant(const void* q, const void* k, const void* v,
                                                  const void* adj, int packed, void* out, int B,
                                                  int N, int H, int d, float scale, float keep_prob,
                                                  unsigned int keep_threshold,
-                                                 const void* seed, int staged, void* stream) {
+                                                 const void* seed, long long b0, int staged,
+                                                 void* stream) {
   const auto* seedp = static_cast<const unsigned long long*>(seed);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -971,14 +977,14 @@ extern "C" int session_attention_forward_variant(const void* q, const void* k, c
     auto* launch = dropout ? (N <= 16 ? launch_staged<true, 2> : launch_staged<true, 4>)
                            : (N <= 16 ? launch_staged<false, 2> : launch_staged<false, 4>);
     const int err = launch(qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold,
-                           seedp, packed, s);
+                           seedp, b0, packed, s);
     if (err != 0) return err;
   } else {
     const int err = opt_in_rows();
     if (err != 0) return err;
     auto* kernel = dropout ? session_attention_kernel<true> : session_attention_kernel<false>;
     kernel<<<(unsigned)((long long)B * H * row_groups(N)), kRowWarps * 32, row_smem_bytes(N, d), s>>>(
-        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp, packed);
+        qf, kf, vf, adjb, outf, B, N, H, d, scale, keep_prob, keep_threshold, seedp, b0, packed);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -992,9 +998,9 @@ extern "C" int session_attention_forward(const void* q, const void* k, const voi
                                          const void* adj, int packed, void* out, int B, int N,
                                          int H, int d, float scale, float keep_prob,
                                          unsigned int keep_threshold, const void* seed,
-                                         void* stream) {
+                                         long long b0, void* stream) {
   return session_attention_forward_variant(q, k, v, adj, packed, out, B, N, H, d, scale, keep_prob,
-                                           keep_threshold, seed,
+                                           keep_threshold, seed, b0,
                                            session_attention_takes_staged(B, N, H), stream);
 }
 
@@ -1013,7 +1019,7 @@ extern "C" int session_attention_backward(const void* q, const void* k, const vo
                                           const void* adj, int packed, const void* dout, void* dq,
                                           void* dk, void* dv, int B, int N, int H, int d, float scale,
                                           float keep_prob, unsigned int keep_threshold,
-                                          const void* seed, void* stream) {
+                                          const void* seed, long long b0, void* stream) {
   if ((long long)B * H * N == 0) return 0;
   auto* launch = N <= 16 ? launch_backward<2> : launch_backward<4>;
   const int err = launch(static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1021,7 +1027,7 @@ extern "C" int session_attention_backward(const void* q, const void* k, const vo
                          static_cast<const float*>(dout), static_cast<float*>(dq),
                          static_cast<float*>(dk), static_cast<float*>(dv), B, N, H, d, scale,
                          keep_prob, keep_threshold, static_cast<const unsigned long long*>(seed),
-                         packed, static_cast<cudaStream_t>(stream));
+                         b0, packed, static_cast<cudaStream_t>(stream));
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -648,6 +648,85 @@ def _native_batch_seed(seed: int, batch_index: int) -> int:
     return int((np.uint64(seed) << np.uint64(20)) + np.uint64(batch_index))
 
 
+def _splitmix64(state: np.uint64) -> tuple[np.uint64, np.uint64]:
+    """One SplitMix64 draw (a numpy copy of the C++ engine's, native/batcher.cpp)."""
+    with np.errstate(over="ignore"):
+        state = state + np.uint64(0x9E3779B97F4A7C15)
+        z = state
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return state, z ^ (z >> np.uint64(31))
+
+
+def _native_negatives(batch_seed: int, gslot: int, session_items, num_items: int, k: int) -> np.ndarray:
+    """The C++ engine's negatives of GLOBAL slot `gslot` (its stream starts at
+    seed ^ golden * (gslot + 1)), for a process that does not assemble that slot."""
+    out = np.zeros(k, dtype=np.int32)
+    if num_items <= 1:
+        return out
+    uniq = set(int(x) for x in session_items)
+    with np.errstate(over="ignore"):
+        state = np.uint64(batch_seed) ^ (np.uint64(0x9E3779B97F4A7C15) * np.uint64(gslot + 1))
+    got, attempts, max_attempts = 0, 0, 128 * k
+    while got < k and attempts < max_attempts:
+        attempts += 1
+        state, z = _splitmix64(state)
+        cand = 1 + int(z % np.uint64(num_items - 1))
+        if cand in uniq:
+            continue
+        out[got] = cand
+        got += 1
+    while got < k:  # a catalog too small to avoid the session's items (as the engine does)
+        state, z = _splitmix64(state)
+        out[got] = 1 + int(z % np.uint64(num_items - 1))
+        got += 1
+    return out
+
+
+class GlobalBatchMeta(NamedTuple):
+    """What every process knows of a GLOBAL batch without assembling the other
+    processes' rows (no adjacency): the targets and the sample mask for the
+    metrics, and with ``ids`` the id list of the replicated GradIndex.
+
+    targets     [B_global] int32
+    sample_mask [B_global] bool
+    ids         [R_global] int32 or None: concat(node_ids.flat, targets,
+                negatives.flat) of the global batch (None unless asked for)
+    """
+
+    targets: np.ndarray
+    sample_mask: np.ndarray
+    ids: np.ndarray | None
+
+
+def _global_batch_meta(dataset: "SessionDataset", chunk: list, batch_size: int, bucket_n: int, seed: int,
+                       batch_index: int, engine: str, with_ids: bool) -> GlobalBatchMeta:
+    """The global batch's meta, from the sessions alone (no CSR or adjacency work)."""
+    K = dataset.num_negatives
+    targets = np.zeros(batch_size, dtype=np.int32)
+    sample_mask = np.zeros(batch_size, dtype=bool)
+    if with_ids:
+        node_ids = np.zeros((batch_size, bucket_n), dtype=np.int32)
+        negatives = np.zeros((batch_size, K), dtype=np.int32)
+    for g, idx in enumerate(chunk):
+        items = dataset.session_items(idx)
+        targets[g] = items[-1]
+        sample_mask[g] = True
+        if with_ids:
+            nodes = np.unique(items[:-1])[:bucket_n]
+            node_ids[g, : len(nodes)] = nodes
+            if engine == "native":
+                negatives[g] = _native_negatives(_native_batch_seed(seed, batch_index), g, items,
+                                                 dataset.num_items, K)
+            else:
+                negatives[g] = sample_negatives(_slot_rng(seed, batch_index, g), set(items.tolist()),
+                                                dataset.num_items, K)
+    ids = None
+    if with_ids:
+        ids = np.concatenate([node_ids.reshape(-1), targets, negatives.reshape(-1)]).astype(np.int32)
+    return GlobalBatchMeta(targets=targets, sample_mask=sample_mask, ids=ids)
+
+
 def _resolve_engine(engine: str) -> str:
     """"auto" is the C++ engine where it builds (``native.available()``),
     else the numpy engine."""
@@ -668,6 +747,10 @@ def iterate_batches(
     engine: str = "auto",
     buckets=DEFAULT_BUCKETS,
     workers: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
+    with_global_meta: bool = False,
+    with_global_ids: bool = False,
 ):
     """Yield host SessionBatches covering one epoch.
 
@@ -684,8 +767,25 @@ def iterate_batches(
     ``2 * workers`` in flight, and yields them in order: the same epoch as
     ``workers=0``. The C++ engine releases the interpreter lock while it
     assembles a batch, so its batches are built in parallel.
+
+    Several processes (the data ranks of a mesh): `batch_size` is the GLOBAL
+    batch size. The schedule is a pure function of (dataset, seed), so every
+    process computes the same one, and process `process_index` of
+    `process_count` assembles rows ``[p * local, (p + 1) * local)`` of each
+    global batch (local = batch_size / process_count). Both engines key the
+    negatives by global slot, so the processes' local batches put together
+    equal the one-process batch. With `with_global_meta` (implied by
+    `process_count` > 1 or `with_global_ids`) each item is a pair
+    (local batch, ``GlobalBatchMeta``); `with_global_ids` fills the meta's
+    ``ids`` for the replicated GradIndex of the sharded sparse step.
     """
     engine = _resolve_engine(engine)
+    if batch_size % process_count:
+        raise ValueError(f"global batch size {batch_size} must divide by process count {process_count}")
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process index {process_index} of {process_count}")
+    local = batch_size // process_count
+    with_global_meta = with_global_meta or process_count > 1 or with_global_ids
     if engine == "native":
         from gat_recommendation_torch.data import native
     # Invariant: a session truncated to max_session_length events has at most
@@ -707,13 +807,21 @@ def iterate_batches(
         for lo in range(0, len(idxs), batch_size):
             schedule.append((idxs[lo : lo + batch_size], bucket_n, len(schedule)))
 
-    def build(item) -> SessionBatch:
+    def build(item):
         chunk, bucket_n, batch_index = item
+        lo = process_index * local
+        mine = chunk[lo:lo + local]
         if engine == "native":
-            return native.assemble_batch(dataset, chunk, batch_size, bucket_n, _native_batch_seed(seed, batch_index))
-        samples = [dataset.sample(i, _slot_rng(seed, batch_index, s)) for s, i in enumerate(chunk)]
-        samples += [None] * (batch_size - len(chunk))
-        return collate(samples, bucket_n, dataset.num_negatives)
+            batch = native.assemble_batch(dataset, mine, local, bucket_n, _native_batch_seed(seed, batch_index),
+                                          slot_offset=lo)
+        else:
+            samples = [dataset.sample(i, _slot_rng(seed, batch_index, lo + s)) for s, i in enumerate(mine)]
+            samples += [None] * (local - len(mine))
+            batch = collate(samples, bucket_n, dataset.num_negatives)
+        if not with_global_meta:
+            return batch
+        return batch, _global_batch_meta(dataset, chunk, batch_size, bucket_n, seed, batch_index, engine,
+                                         with_global_ids)
 
     if workers <= 0:
         for item in schedule:

@@ -18,6 +18,7 @@ from torch import nn
 
 from gat_recommendation_torch.data.batching import SessionBatch
 from gat_recommendation_torch.device import resolve_device
+from gat_recommendation_torch.ops import shard
 from gat_recommendation_torch.ops.masked import (
     masked_batch_norm,
     masked_max,
@@ -191,6 +192,11 @@ class SessionModel(nn.Module):
     `generator` (a ``torch.Generator`` on that device; seed 0 when omitted).
     On the "meta" device nothing is drawn: load real tensors with
     ``load_state_dict(..., assign=True)``, as the serving checkpoint loader does.
+
+    Under a mesh (``parallel/mesh.py::shard_model``) the table, and whatever
+    is shaped like it, holds rows ``[table_offset, table_offset + rows)`` of
+    the whole: drawing and the positional encodings fill those rows of what
+    one GPU would hold, and lookups go through ``ops/shard.py::lookup``.
     """
 
     seeds_per_layer: int
@@ -204,6 +210,7 @@ class SessionModel(nn.Module):
         self.config = cfg
         rows = padded_rows(cfg.num_items)
         self.item_embedding = nn.Parameter(torch.empty(rows, cfg.embedding_dim, device=device))
+        self.table_offset = 0  # the global row of the table's row 0 (a row shard's first row)
         self.readout = (
             nn.Linear(cfg.hidden_dim, 1, device=device) if cfg.readout_type == "attention" else None
         )
@@ -215,8 +222,18 @@ class SessionModel(nn.Module):
             self.reset_parameters(generator)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from `generator`; BatchNorm starts at identity."""
-        init_item_embedding(self.item_embedding, self.config.num_items, generator)
+        """Draw every parameter from `generator`; BatchNorm starts at identity.
+        A row shard of the table takes its rows of the whole table's draw, so
+        every rank draws what one GPU draws."""
+        table = self.item_embedding
+        rows = padded_rows(self.config.num_items)
+        if table.shape[0] == rows:
+            init_item_embedding(table, self.config.num_items, generator)
+        else:
+            whole = table.new_empty(rows, table.shape[1])
+            init_item_embedding(whole, self.config.num_items, generator)
+            with torch.no_grad():
+                table.copy_(whole[self.table_offset:self.table_offset + table.shape[0]])
         if self.readout is not None:
             init_xavier_linear(self.readout, generator)
         self._reset_layers(generator)
@@ -239,7 +256,7 @@ class SessionModel(nn.Module):
     def _nodes(self, batch: SessionBatch, node_embeddings: torch.Tensor | None) -> torch.Tensor:
         """[B, N, D] node features: `node_embeddings` (the sparse step's gathered
         rows) or the table's rows of ``batch.node_ids``."""
-        return self.item_embedding[batch.node_ids] if node_embeddings is None else node_embeddings
+        return shard.lookup(self.item_embedding, batch.node_ids) if node_embeddings is None else node_embeddings
 
     def _pool(self, x: torch.Tensor, batch: SessionBatch) -> torch.Tensor:
         return apply_readout(self.readout, x, batch.node_mask, batch.num_nodes, self.config.readout_type)

@@ -21,7 +21,7 @@ from gat_recommendation_torch.models import base
 from gat_recommendation_torch.models.base import MaskedBatchNorm, SessionModel
 from gat_recommendation_torch.models.laplacian_pe import compute_laplacian_pe
 from gat_recommendation_torch.models.layers import FeedForward, TransformerConv
-from gat_recommendation_torch.ops import step_block
+from gat_recommendation_torch.ops import shard, step_block
 from gat_recommendation_torch.ops.node_dropout import node_dropout
 
 
@@ -89,13 +89,15 @@ class GraphTransformer(SessionModel):
         """Fill ``cached_pe`` in place, on the model's device, with the
         Laplacian eigenvectors of the co-occurrence graph (item_i[e],
         item_j[e]) (``models/laplacian_pe.py``, on the host); the padded
-        phantom rows stay zero. Nothing without PE."""
+        phantom rows stay zero. Nothing without PE. A row shard takes its rows
+        (``table_offset``)."""
         if not self.uses_laplacian_pe:
             return
         pe = compute_laplacian_pe(item_i, item_j, self.config.num_items, k=self.config.laplacian_k)
+        rows = pe[self.table_offset:self.table_offset + self.cached_pe.shape[0]]
         with torch.no_grad():
             self.cached_pe.zero_()
-            self.cached_pe[: pe.shape[0]].copy_(torch.from_numpy(pe))
+            self.cached_pe[: rows.shape[0]].copy_(torch.from_numpy(rows))
 
     def forward(
         self,
@@ -116,7 +118,7 @@ class GraphTransformer(SessionModel):
         rate, seed = self._rate_and_seed(seed)
         x = self._nodes(batch, node_embeddings)
         if self.lap_projection is not None:
-            x = x + self.lap_projection(self.cached_pe[batch.node_ids])
+            x = x + self.lap_projection(shard.lookup(self.cached_pe, batch.node_ids))
         for layer, (conv, bn) in enumerate(zip(self.convs, self.batch_norms)):
             residual = x
             seeds = step_block.layer_seeds(seed, layer, self.seeds_per_layer)

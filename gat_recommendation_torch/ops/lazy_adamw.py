@@ -41,9 +41,14 @@ device memory. Given a Python int they build that row themselves.
 
 Moments are float32 or bfloat16 (stochastic rounding keyed by ``(count,
 buffer)`` and the counter ``row * D + column``, as ``ops/embedding_adamw.py``
-stores them). Scalars that divide are tensors on the data's device, so a
-division stays a division on the card too (PyTorch turns ``tensor / python
-float`` into a multiplication by the reciprocal there).
+stores them). ``row_offset`` is the global row of the table's row 0 when it
+is one row shard of the full table (parallel training): uid holds global
+rows, a uid outside the shard's rows gathers zeros and writes nothing,
+materialize walks only the shard's rows, and the rounding counters are the
+global rows', so the shards of a table update exactly as the whole table
+does. Scalars that divide are tensors on the data's device, so a division
+stays a division on the card too (PyTorch turns ``tensor / python float``
+into a multiplication by the reciprocal there).
 """
 
 from __future__ import annotations
@@ -139,16 +144,17 @@ def dense_reference_step(w, mu, nu, g, count: int, *, lr, b1, b2, eps, weight_de
 # ---------------------------------------------------------------------------
 
 
-def _valid_slots(uid: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(valid [U] bool, row index [U] long with the invalid slots on row 0)."""
-    valid = (uid >= 0) & (uid < rows)
-    return valid, torch.where(valid, uid, 0).long()
+def _valid_slots(uid: torch.Tensor, rows: int, row_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(valid [U] bool, local row index [U] long with the invalid slots on row 0)."""
+    local = uid.long() - row_offset
+    valid = (local >= 0) & (local < rows)
+    return valid, torch.where(valid, local, 0)
 
 
 def gather_catch_up_reference(table, mu, nu, last_step, uid, count: int, *, lr, b1=0.9, b2=0.999,
-                              eps=1e-8, weight_decay=0.0, tail_terms=TAIL_TERMS):
+                              eps=1e-8, weight_decay=0.0, tail_terms=TAIL_TERMS, row_offset=0):
     """Plain version of ``gather_catch_up``."""
-    valid, idx = _valid_slots(uid, table.shape[0])
+    valid, idx = _valid_slots(uid, table.shape[0], row_offset)
     ls = last_step[idx]
     m = (count - 1 - ls).clamp_min(0)
     out = catch_up(table[idx], mu[idx].float(), nu[idx].float(), ls, m, lr=lr, b1=b1, b2=b2,
@@ -158,22 +164,22 @@ def gather_catch_up_reference(table, mu, nu, last_step, uid, count: int, *, lr, 
 
 def touched_update_scatter_reference(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed,
                                      count: int, *, lr, b1=0.9, b2=0.999, eps=1e-8,
-                                     weight_decay=0.0, stochastic_rounding=False):
+                                     weight_decay=0.0, stochastic_rounding=False, row_offset=0):
     """Plain version of ``touched_update_scatter``: updates table, mu, nu and
     last_step in place and returns them."""
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
     w, m, n = touched_update(w_c, mu_c, nu_c, summed, count, lr=lr, b1=b1, b2=b2, eps=eps,
                              weight_decay=weight_decay)
     rows = table.shape[0]
-    valid, idx = _valid_slots(uid, rows)
+    valid, idx = _valid_slots(uid, rows, row_offset)
     # Sentinel slots go to a spare row that is cut off again: no shape depends
     # on the data, so nothing waits for the device. uid is unique, so every
     # real row is written once.
     slot = torch.where(valid, idx, rows)
     values = (
         (table, w),
-        (mu, round_moment(m, mu.dtype, sr_mu, moment_seed(count, 0), idx)),
-        (nu, round_moment(n, nu.dtype, sr_nu, moment_seed(count, 1), idx)),
+        (mu, round_moment(m, mu.dtype, sr_mu, moment_seed(count, 0), idx + row_offset)),
+        (nu, round_moment(n, nu.dtype, sr_nu, moment_seed(count, 1), idx + row_offset)),
         (last_step, torch.full_like(uid, count)),
     )
     for dest, value in values:
@@ -184,7 +190,7 @@ def touched_update_scatter_reference(table, mu, nu, last_step, uid, w_c, mu_c, n
 
 def materialize_reference(table, mu, nu, last_step, count: int, *, lr, b1=0.9, b2=0.999, eps=1e-8,
                           weight_decay=0.0, tail_terms=TAIL_TERMS, stochastic_rounding=False,
-                          chunk_rows=MATERIALIZE_CHUNK_ROWS):
+                          chunk_rows=MATERIALIZE_CHUNK_ROWS, row_offset=0):
     """Plain version of ``materialize``, in row chunks (the series holds a
     few float32 temporaries of the chunk's size); updates in place."""
     sr_mu, sr_nu = stochastic_flags(mu, nu, stochastic_rounding)
@@ -193,7 +199,7 @@ def materialize_reference(table, mu, nu, last_step, count: int, *, lr, b1=0.9, b
         w, m, n, last = materialize_arrays(
             table[lo:hi], mu[lo:hi], nu[lo:hi], last_step[lo:hi], count, lr=lr, b1=b1, b2=b2,
             eps=eps, weight_decay=weight_decay, tail_terms=tail_terms)
-        rows = torch.arange(lo, hi, device=table.device)
+        rows = torch.arange(lo, hi, device=table.device) + row_offset
         table[lo:hi] = w
         mu[lo:hi] = round_moment(m, mu.dtype, sr_mu, moment_seed(count, 0), rows)
         nu[lo:hi] = round_moment(n, nu.dtype, sr_nu, moment_seed(count, 1), rows)
@@ -213,10 +219,10 @@ _F, _I, _LL, _ULL, _P = (
 def lazy_lib() -> ctypes.CDLL:
     """The library of csrc/lazy_adamw.cu with its three entry points typed."""
     lib = _build.load("lazy_adamw")
-    lib.lazy_gather_catch_up.argtypes = [_P] * 9 + [_I, _LL] + [_I] * 4 + [_F] * 5 + [_P] * 3
-    lib.lazy_touched_update.argtypes = [_P] * 10 + [_I, _LL] + [_I] * 5 + [_F] * 7 + [_P]
+    lib.lazy_gather_catch_up.argtypes = [_P] * 9 + [_I, _LL, _LL] + [_I] * 4 + [_F] * 5 + [_P] * 3
+    lib.lazy_touched_update.argtypes = [_P] * 10 + [_I, _LL, _LL] + [_I] * 5 + [_F] * 7 + [_P]
     lib.lazy_materialize.argtypes = (
-        [_P] * 4 + [_LL] + [_I] * 5 + [_ULL] * 2 + [_I] * 2 + [_F] * 5 + [_P] * 3
+        [_P] * 4 + [_LL, _LL] + [_I] * 5 + [_ULL] * 2 + [_I] * 2 + [_F] * 5 + [_P] * 3
     )
     for fn in (lib.lazy_gather_catch_up, lib.lazy_touched_update, lib.lazy_materialize):
         fn.restype = _I
@@ -277,17 +283,19 @@ def _device(name: str, t: torch.Tensor) -> bool:
 
 
 def gather_catch_up(table, mu, nu, last_step, uid, count: int | torch.Tensor, *, lr, b1=0.9,
-                    b2=0.999, eps=1e-8, weight_decay=0.0, tail_terms=TAIL_TERMS):
+                    b2=0.999, eps=1e-8, weight_decay=0.0, tail_terms=TAIL_TERMS, row_offset=0):
     """The uid rows caught up to step ``count - 1`` (``count``: the step number
     after this update, an int or the step's row of the step block on the
     table's device): float32 (w_c, mu_c, nu_c), each [U, D], zeros for slots
     outside the table.
 
     table: float32 [rows, D]; mu, nu: float32 or bfloat16 [rows, D];
-    last_step: int32 [rows]; uid: int32 [U] unique row ids, sentinel-padded.
+    last_step: int32 [rows]; uid: int32 [U] unique global row ids,
+    sentinel-padded; `row_offset`: the global row of the table's row 0.
     """
     _check_terms("gather_catch_up", tail_terms)
-    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, tail_terms=tail_terms)
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, tail_terms=tail_terms,
+              row_offset=row_offset)
     if not _device("gather_catch_up", table):
         return gather_catch_up_reference(table, mu, nu, last_step, uid, step_block.count_of(count), **hp)
     _check_table("gather_catch_up", table, mu, nu, last_step)
@@ -299,7 +307,7 @@ def gather_catch_up(table, mu, nu, last_step, uid, count: int | torch.Tensor, *,
     with torch.cuda.device(table.device):
         err = lazy_lib().lazy_gather_catch_up(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), last_step.data_ptr(), uid.data_ptr(),
-            *(t.data_ptr() for t in out), row.data_ptr(), uid.shape[0], table.shape[0],
+            *(t.data_ptr() for t in out), row.data_ptr(), uid.shape[0], table.shape[0], row_offset,
             table.shape[1], mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, tail_terms,
             lr, eps, ln_b1, ln_b2, a_log, p1.ctypes.data, p2.ctypes.data,
             torch.cuda.current_stream().cuda_stream,
@@ -311,13 +319,14 @@ def gather_catch_up(table, mu, nu, last_step, uid, count: int | torch.Tensor, *,
 
 def touched_update_scatter(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed,
                            count: int | torch.Tensor, *, lr, b1=0.9, b2=0.999, eps=1e-8,
-                           weight_decay=0.0, stochastic_rounding=False):
+                           weight_decay=0.0, stochastic_rounding=False, row_offset=0):
     """AdamW at step `count` (an int or the step's row of the step block) on
     the caught-up rows (w_c, mu_c, nu_c from ``gather_catch_up`` on the same
     uid) with their summed gradient [U, D], scattered into the uid rows of
     table, mu and nu, and ``last_step[uid] = count``; sentinel slots are
-    dropped. In place; returns the four."""
-    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    dropped, as are the rows of other shards (`row_offset` as for
+    ``gather_catch_up``). In place; returns the four."""
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, row_offset=row_offset)
     if not _device("touched_update_scatter", table):
         return touched_update_scatter_reference(
             table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summed, step_block.count_of(count),
@@ -330,7 +339,7 @@ def touched_update_scatter(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summe
         err = lazy_lib().lazy_touched_update(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), last_step.data_ptr(), uid.data_ptr(),
             w_c.data_ptr(), mu_c.data_ptr(), nu_c.data_ptr(), summed.data_ptr(), row.data_ptr(),
-            uid.shape[0], table.shape[0], table.shape[1],
+            uid.shape[0], table.shape[0], row_offset, table.shape[1],
             mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16, sr_mu, sr_nu,
             lr, b1, b2, eps, weight_decay, 1.0 - b1, 1.0 - b2,
             torch.cuda.current_stream().cuda_stream,
@@ -341,12 +350,14 @@ def touched_update_scatter(table, mu, nu, last_step, uid, w_c, mu_c, nu_c, summe
 
 
 def materialize(table, mu, nu, last_step, count: int, *, lr, b1=0.9, b2=0.999, eps=1e-8,
-                weight_decay=0.0, tail_terms=TAIL_TERMS, stochastic_rounding=False):
+                weight_decay=0.0, tail_terms=TAIL_TERMS, stochastic_rounding=False, row_offset=0):
     """Every row caught up to step `count` (the optimizer's current count) with
     no new gradient, ``last_step = count``. In place; returns the four.
-    Idempotent: a row already at `count` keeps its bits."""
+    Idempotent: a row already at `count` keeps its bits. `row_offset`: the
+    global row of the table's row 0 (its rounding counters)."""
     _check_terms("materialize", tail_terms)
-    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, tail_terms=tail_terms)
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, tail_terms=tail_terms,
+              row_offset=row_offset)
     if not _device("materialize", table):
         return materialize_reference(table, mu, nu, last_step, count,
                                      stochastic_rounding=stochastic_rounding, **hp)
@@ -357,8 +368,8 @@ def materialize(table, mu, nu, last_step, count: int, *, lr, b1=0.9, b2=0.999, e
     with torch.cuda.device(table.device):
         err = lazy_lib().lazy_materialize(
             table.data_ptr(), mu.data_ptr(), nu.data_ptr(), last_step.data_ptr(),
-            table.shape[0], table.shape[1], mu.dtype == torch.bfloat16, nu.dtype == torch.bfloat16,
-            sr_mu, sr_nu, moment_seed(count, 0), moment_seed(count, 1), count, tail_terms,
+            table.shape[0], row_offset, table.shape[1], mu.dtype == torch.bfloat16,
+            nu.dtype == torch.bfloat16, sr_mu, sr_nu, moment_seed(count, 0), moment_seed(count, 1), count, tail_terms,
             lr, eps, ln_b1, ln_b2, a_log, p1.ctypes.data, p2.ctypes.data,
             torch.cuda.current_stream().cuda_stream,
         )

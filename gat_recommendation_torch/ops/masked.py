@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from gat_recommendation_torch.ops import shard
 from gat_recommendation_torch.ops.rounding import keep_mask, keep_scale
 
 _NEG_INF = -1e30
@@ -35,6 +36,13 @@ def unpack_adjacency(packed: torch.Tensor, n: int) -> torch.Tensor:
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
     bits = (packed[..., None] >> shifts) & 1
     return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)[..., :n].bool()
+
+
+def session_offset(x: torch.Tensor) -> int:
+    """The counter of x[0] when x holds the active shard's sessions along its
+    first axis: its first session times the elements of a session (0 without
+    a shard)."""
+    return shard.first_session() * (x.numel() // x.shape[0]) if x.numel() else 0
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -71,15 +79,19 @@ def masked_batch_norm(
     normalization uses the biased batch variance; the running statistics are
     EMA-updated with the unbiased variance. In train mode the running
     `running_mean`, `running_var` and `count` buffers are updated IN PLACE
-    (the JAX package returns a new state instead).
+    (the JAX package returns a new state instead). Under a shard
+    (``ops/shard.py``) the count, the sum and the squared deviations are summed
+    over its data group, forward and backward: every rank normalizes with the
+    global batch's statistics and keeps the same running buffers, as GSPMD
+    gives the JAX package's sharded step.
 
     x: [B, N, D]; mask: [B, N]. Returns the normalized x.
     """
     if train:
         m = mask.to(x.dtype).unsqueeze(-1)
-        n = m.sum().clamp_min(1.0)
-        mean = (x * m).sum(dim=(0, 1)) / n
-        var = ((x - mean).square() * m).sum(dim=(0, 1)) / n
+        n = shard.sum_over_data(m.sum()).clamp_min(1.0)
+        mean = shard.sum_over_data((x * m).sum(dim=(0, 1))) / n
+        var = shard.sum_over_data(((x - mean).square() * m).sum(dim=(0, 1))) / n
         unbiased = var * n / (n - 1.0).clamp_min(1.0)
         with torch.no_grad():
             running_mean.mul_(1 - momentum).add_(momentum * mean)
@@ -91,15 +103,18 @@ def masked_batch_norm(
     return (x - mean) * inv * scale + bias
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool, seed: int | torch.Tensor = 0) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, train: bool, seed: int | torch.Tensor = 0,
+            offset: int | None = None) -> torch.Tensor:
     """Inverted dropout (kept entries scaled by ``keep_scale(rate)``, 1/(1-rate)
     in float32, at train time).
 
     The keep mask is a pure function of `seed` and each element's linear
-    index (``rounding.keep_mask``, the counter hash of the attention
-    dropout). `seed` is an int or a 0-dim int64 tensor holding its bits. The
-    plain version of ``ops/node_dropout.py``'s kernel, which the model calls."""
+    index plus `offset` (``rounding.keep_mask``, the counter hash of the
+    attention dropout). `seed` is an int or a 0-dim int64 tensor holding its
+    bits. `offset` None is the active shard's (``session_offset``). The plain
+    version of ``ops/node_dropout.py``'s kernel, which the model calls."""
     if not train or rate <= 0.0:
         return x
-    keep = keep_mask(x.shape, rate, seed, x.device)
+    offset = session_offset(x) if offset is None else offset
+    keep = keep_mask(x.shape, rate, seed, x.device, offset)
     return torch.where(keep, x * keep_scale(rate), torch.zeros_like(x))

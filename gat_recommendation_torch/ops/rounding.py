@@ -97,11 +97,13 @@ def keep_scale(rate: float) -> float:
     return float(np.float32(1.0) / np.float32(1.0 - rate))
 
 
-def keep_mask(shape, rate: float, seed: int | torch.Tensor, device) -> torch.Tensor:
+def keep_mask(shape, rate: float, seed: int | torch.Tensor, device, offset: int = 0) -> torch.Tensor:
     """The bool keep mask of dropout at `rate` over `shape`: element i is kept
-    when ``counter_hash(seed, i) >> 8`` (i its linear index) lies below
-    ``keep_threshold(rate)``."""
-    idx = torch.arange(math.prod(shape), device=device).view(shape)
+    when ``counter_hash(seed, offset + i) >> 8`` (i its linear index) lies
+    below ``keep_threshold(rate)``. `offset` is the linear index of element 0
+    in a larger tensor whose leading rows these are (a data rank's rows of a
+    global batch under a mesh), so the rows draw the larger tensor's bits."""
+    idx = torch.arange(offset, offset + math.prod(shape), device=device).view(shape)
     return (counter_hash(seed, idx) >> 8) < keep_threshold(rate)
 
 

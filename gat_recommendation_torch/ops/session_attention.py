@@ -32,8 +32,11 @@ the bit-packed adjacency.
 forward's grid; both exist for measuring only.
 
 The dropout keep bit of weight ``(b, h, i, j)`` is a pure function of
-``(seed, b, h, i, j)``: ``counter_hash(seed, linear index) >> 8`` below
-``(1-p)·2^24`` (``ops/rounding.py``). No mask tensor is stored; the kernels
+``(seed, b0 + b, h, i, j)``: ``counter_hash(seed, linear index) >> 8`` below
+``(1-p)·2^24`` (``ops/rounding.py``). ``b0`` (``first_session``) is 0 on one
+GPU; under a mesh a data rank holds sessions ``[b0, b0 + B)`` of the global
+batch (the active shard's, ``ops/shard.py``, by default) and draws at its
+rows the bits the whole batch draws. It goes to the kernels by value. No mask tensor is stored; the kernels
 and the plain version draw the same bits from the same seed. The kernels read
 the seed from device memory: a 0-dim int64 tensor on the card (a layer's
 field of the step block, ``ops/step_block.py``, so that a CUDA graph of the
@@ -56,7 +59,7 @@ import math
 
 import torch
 
-from gat_recommendation_torch.ops import _build, step_block
+from gat_recommendation_torch.ops import _build, shard, step_block
 from gat_recommendation_torch.ops.masked import masked_softmax, unpack_adjacency
 from gat_recommendation_torch.ops.rounding import keep_mask as dropout_keep_mask
 from gat_recommendation_torch.ops.rounding import keep_threshold
@@ -74,11 +77,13 @@ def session_attention_reference(
     dropout_p: float = 0.0,
     seed: int | torch.Tensor | None = None,
     packed: bool = False,
+    first_session: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version. q/k/v: [B, N, heads*d]; adj: [B, N, N] bool,
     or with `packed` the bit-packed rows [B, N, ceil(N / 8)] uint8. With
     ``dropout_p > 0`` the keep mask comes from `seed` (an int, or a 0-dim
-    int64 tensor holding its bits)."""
+    int64 tensor holding its bits), session b drawing the bits of session
+    ``first_session + b``."""
     B, N, HD = q.shape
     if packed:
         adj = unpack_adjacency(adj, N)
@@ -89,15 +94,15 @@ def session_attention_reference(
     if dropout_p > 0.0:
         if seed is None:
             raise ValueError("attention dropout needs a seed")
-        keep = dropout_keep_mask((B, heads, N, N), dropout_p, seed, q.device)
+        keep = dropout_keep_mask((B, heads, N, N), dropout_p, seed, q.device, first_session * heads * N * N)
         alpha = torch.where(keep, alpha / (1.0 - dropout_p), torch.zeros_like(alpha))
     return torch.einsum("bhij,bjhd->bihd", alpha, vr).reshape(B, N, HD)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("session_attention")
-    tail = [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+    tail = [ctypes.c_int] * 4 + [  # B, N, H, d; scale, keep_prob, threshold, seed, b0, stream
+        ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ]
     inputs = [ctypes.c_void_p] * 4 + [ctypes.c_int]  # q, k, v, adj and whether adj is packed
     lib.session_attention_forward.argtypes = inputs + [ctypes.c_void_p] + tail
@@ -120,7 +125,7 @@ class _SessionAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, adj, heads: int, dropout_p: float, seed: torch.Tensor | None,
-                variant: str | None, packed: bool):
+                variant: str | None, packed: bool, first_session: int):
         B, N, HD = q.shape
         d = HD // heads
         out = torch.empty_like(q)
@@ -128,7 +133,7 @@ class _SessionAttention(torch.autograd.Function):
         args = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), int(packed), out.data_ptr(),
             B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p),
-            None if seed is None else seed.data_ptr(),
+            None if seed is None else seed.data_ptr(), first_session,
         )
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -143,14 +148,14 @@ class _SessionAttention(torch.autograd.Function):
         session_attention.staged_launches += int(staged)
         session_attention.packed_launches += int(packed)
         ctx.save_for_backward(q, k, v, adj)
-        ctx.args = (heads, dropout_p, seed, packed)
+        ctx.args = (heads, dropout_p, seed, packed, first_session)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, adj = ctx.saved_tensors
         dq, dk, dv = session_attention_backward(q, k, v, adj, grad_out, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def session_attention_backward(
@@ -163,6 +168,7 @@ def session_attention_backward(
     dropout_p: float = 0.0,
     seed: int | torch.Tensor | None = 0,
     packed: bool = False,
+    first_session: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``session_attention`` for the output gradient `grad_out`.
 
@@ -173,7 +179,7 @@ def session_attention_backward(
     """
     if q.device.type == "cpu":
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = session_attention_reference(*leaves, adj, heads, dropout_p, seed, packed)
+        out = session_attention_reference(*leaves, adj, heads, dropout_p, seed, packed, first_session)
         return torch.autograd.grad(out, leaves, grad_out)
     B, N, HD = q.shape
     d = HD // heads
@@ -187,7 +193,7 @@ def session_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), int(packed), grad_out.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, N, heads, d, math.sqrt(d), 1.0 - dropout_p, keep_threshold(dropout_p),
-            None if seed is None else seed.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            None if seed is None else seed.data_ptr(), first_session, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "session_attention_backward")
     session_attention.backward_launches += 1
@@ -204,6 +210,7 @@ def session_attention(
     dropout_p: float = 0.0,
     seed: int | torch.Tensor | None = None,
     packed: bool = False,
+    first_session: int | None = None,
 ) -> torch.Tensor:
     """Masked multi-head attention; destinations with no in-edges output zeros.
 
@@ -212,9 +219,12 @@ def session_attention(
     ceil(N / 8)] uint8 (source j is bit 7 - j % 8 of byte j // 8).
     `dropout_p` > 0 applies attention dropout keyed by the 64-bit `seed`, an
     int or a 0-dim int64 tensor on q's device holding its bits; 0 is the eval
-    path. Returns [B, N, heads*d] float32, differentiable with respect to q,
-    k and v.
+    path. Session b draws the dropout bits of session ``first_session + b``
+    (None: the active shard's first session, ``ops/shard.py``; 0 without one).
+    Returns [B, N, heads*d] float32, differentiable with respect to q, k and v.
     """
+    if first_session is None:
+        first_session = shard.first_session()
     if dropout_p > 0.0 and seed is None:
         raise ValueError("attention dropout needs a seed")
     if seed is None:
@@ -222,8 +232,8 @@ def session_attention(
     elif not isinstance(seed, torch.Tensor):
         seed &= 0xFFFFFFFFFFFFFFFF
     if q.device.type == "cpu":
-        return session_attention_reference(q, k, v, adj, heads, dropout_p, seed, packed)
-    return _launch(q, k, v, adj, heads, dropout_p, seed, None, packed)
+        return session_attention_reference(q, k, v, adj, heads, dropout_p, seed, packed, first_session)
+    return _launch(q, k, v, adj, heads, dropout_p, seed, None, packed, first_session)
 
 
 def session_attention_variant(
@@ -243,7 +253,7 @@ def session_attention_variant(
     between the two; the port itself calls ``session_attention``."""
     if variant not in ("warp", "staged"):
         raise ValueError(f"variant must be 'warp' or 'staged', got {variant!r}")
-    return _launch(q, k, v, adj, heads, dropout_p, seed, variant, packed)
+    return _launch(q, k, v, adj, heads, dropout_p, seed, variant, packed, 0)
 
 
 def session_attention_launch_floor(B: int, N: int, heads: int, head_dim: int) -> None:
@@ -255,7 +265,7 @@ def session_attention_launch_floor(B: int, N: int, heads: int, head_dim: int) ->
     _build.check(err, "session_attention_launch_floor")
 
 
-def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None, packed: bool):
+def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None, packed: bool, first_session: int):
     """Check the arguments and launch; `variant` None lets the source choose."""
     if q.device.type != "cuda":
         raise ValueError(f"session_attention runs on cuda or cpu tensors, got {q.device}")
@@ -278,7 +288,7 @@ def _launch(q, k, v, adj, heads, dropout_p, seed, variant: str | None, packed: b
         raise ValueError(f"N={N} nodes; the kernel takes 1..{MAX_NODES}")
     keep_threshold(dropout_p)  # validates the rate before anything launches
     return _SessionAttention.apply(q, k, v, adj, heads, dropout_p, _seed_on(q.device, dropout_p, seed),
-                                   variant, packed)
+                                   variant, packed, first_session)
 
 
 def _seed_on(device, dropout_p: float, seed) -> torch.Tensor | None:

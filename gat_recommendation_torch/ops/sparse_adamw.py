@@ -29,6 +29,17 @@ step's CUDA graphs, so ``count`` may be the step's row of the step block
 (``ops/step_block.py``): the kernel reads the bias corrections and the
 rounding seeds from device memory. Given a Python int the wrapper builds that
 row itself.
+
+``sharded_sparse_adamw`` is the same kernel on one row shard of a table
+split into ``n_shards`` equal blocks over a mesh's 'model' axis (it replaces
+``ops/pallas/sparse_adamw.py::sharded_fused_sparse_adamw``): the shard's
+``row_offset`` is ``shard * rows_per_shard``, ``uid`` and ``summed`` are the
+replicated global ones, and each shard finds its own rows in ``uid`` by the
+kernel's binary search, with no communication. The rounding counters are
+global rows, so the shards' concatenation equals one unsharded call bit for
+bit. Its plain twin is ``sharded_sparse_adamw_reference``. ``supports`` is
+the JAX package's test for its Pallas route (tile-aligned shards, a summed
+block that fits on chip); the port's kernel takes any shape.
 """
 
 from __future__ import annotations
@@ -83,6 +94,18 @@ def sparse_adamw_reference(
     return table, mu, nu
 
 
+# The JAX kernel's row tile and on-chip budget for `summed` (ops/pallas/sparse_adamw.py).
+TILE = 256
+MAX_SUMMED_BYTES = 8 * 1024 * 1024
+
+
+def supports(rows: int, num_unique_slots: int, dim: int, n_shards: int = 1) -> bool:
+    """Where the JAX package runs its Pallas kernel rather than its XLA path:
+    each of `n_shards` row blocks of a `rows`-row table tiles evenly and the
+    replicated summed block fits on chip."""
+    return rows % (TILE * n_shards) == 0 and num_unique_slots * dim * 4 <= MAX_SUMMED_BYTES
+
+
 def sparse_adamw(
     table: torch.Tensor,
     mu: torch.Tensor,
@@ -106,12 +129,18 @@ def sparse_adamw(
     [U, D]; `count`: the step number after this update, an int or the step's
     row of the step block on the table's device.
     """
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, row_offset=row_offset,
+              stochastic_rounding=stochastic_rounding)
     if table.device.type == "cpu":
-        return sparse_adamw_reference(
-            table, mu, nu, uid, summed, step_block.count_of(count), lr=lr, b1=b1, b2=b2, eps=eps,
-            weight_decay=weight_decay, row_offset=row_offset,
-            stochastic_rounding=stochastic_rounding,
-        )
+        return sparse_adamw_reference(table, mu, nu, uid, summed, step_block.count_of(count), **hp)
+    _launch(table, mu, nu, uid, summed, count, **hp)
+    sparse_adamw.launches += 1
+    return table, mu, nu
+
+
+def _launch(table, mu, nu, uid, summed, count, *, lr, b1, b2, eps, weight_decay, row_offset,
+            stochastic_rounding) -> None:
+    """Check the arguments and launch kernel 3 on the current stream."""
     if table.device.type != "cuda":
         raise ValueError(f"sparse_adamw runs on cuda or cpu tensors, got {table.device}")
     check_table_args("sparse_adamw", table, mu, nu)
@@ -134,8 +163,69 @@ def sparse_adamw(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "sparse_adamw")
-    sparse_adamw.launches += 1
+
+
+def _shard_offset(table: torch.Tensor, shard: int, n_shards: int) -> int:
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} of {n_shards}")
+    return shard * table.shape[0]
+
+
+def sharded_sparse_adamw_reference(
+    table: torch.Tensor,
+    mu: torch.Tensor,
+    nu: torch.Tensor,
+    uid: torch.Tensor,
+    summed: torch.Tensor,
+    count: int,
+    *,
+    shard: int,
+    n_shards: int,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    stochastic_rounding: bool = False,
+):
+    """Plain version of ``sharded_sparse_adamw``: ``sparse_adamw_reference``
+    at the shard's row offset. Updates the shard in place and returns it."""
+    return sparse_adamw_reference(
+        table, mu, nu, uid, summed, count, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+        row_offset=_shard_offset(table, shard, n_shards), stochastic_rounding=stochastic_rounding)
+
+
+def sharded_sparse_adamw(
+    table: torch.Tensor,
+    mu: torch.Tensor,
+    nu: torch.Tensor,
+    uid: torch.Tensor,
+    summed: torch.Tensor,
+    count: int | torch.Tensor,
+    *,
+    shard: int,
+    n_shards: int,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    stochastic_rounding: bool = False,
+):
+    """``sparse_adamw`` on row shard `shard` of `n_shards` equal row blocks of
+    a table: table, mu and nu are that shard's rows [rows / n_shards, D] (on
+    a mesh, this rank's; in one process, views of the whole table), `uid` and
+    `summed` the replicated global ones. One launch of kernel 3 at
+    ``row_offset = shard * rows_per_shard``; in place, returns the shard."""
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              stochastic_rounding=stochastic_rounding)
+    if table.device.type == "cpu":
+        return sharded_sparse_adamw_reference(table, mu, nu, uid, summed, step_block.count_of(count),
+                                              shard=shard, n_shards=n_shards, **hp)
+    _launch(table, mu, nu, uid, summed, count, row_offset=_shard_offset(table, shard, n_shards), **hp)
+    sharded_sparse_adamw.launches += 1
     return table, mu, nu
 
 
 sparse_adamw.launches = 0
+sharded_sparse_adamw.launches = 0

@@ -17,9 +17,20 @@ to ``<output-dir>/<model>/``; ``--resume`` goes on from its
 ``checkpoint_latest``; ``--gcs-bucket`` moves the inputs and outputs where
 google-cloud-storage is installed.
 
-One GPU only (ROADMAP A8): ``--mesh``, ``--n-model`` > 1 and a multi-process
-launch raise; with more than one GPU visible the default mesh would be on,
-so the script asks for ``--no-mesh`` instead of training on one in silence.
+Over a mesh (``parallel/``): one process a GPU, launched by torchrun (or
+with the JAX script's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``)::
+
+    torchrun --nproc-per-node=N -m gat_recommendation_torch.scripts.train.train_baseline --mesh --n-model M --chain 1
+
+``--distributed auto`` joins the launch's process group (nccl on cuda, gloo
+with ``--device cpu``; a detected launch that fails to join raises);
+``--mesh`` defaults to on when the launch has more than one process; the
+mesh is ``(processes / M) x M``, the table row-sharded over M, and
+``--batch-size`` is the global batch, each process assembling its data rank's
+rows. A single process with ``--mesh`` trains on a 1x1 mesh in a group of
+one. A mesh larger than the processes or the GPUs raises with both counts;
+chained steps under a mesh are not ported (ROADMAP A8b: pass ``--chain 1``).
+Rank 0 writes the outputs.
 
 ``parse_args``, ``build`` (datasets, model, optimizer, Trainer) and ``run``
 stand apart so that a caller can set the weights between them; ``main``
@@ -30,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 from pathlib import Path
 
@@ -40,6 +50,7 @@ from gat_recommendation_torch.data.batching import SessionDataset, iterate_batch
 from gat_recommendation_torch.data.graph import load_edges
 from gat_recommendation_torch.device import resolve_device
 from gat_recommendation_torch.models.registry import MODEL_NAMES, count_params, create_model
+from gat_recommendation_torch.parallel import distributed
 from gat_recommendation_torch.train.losses import create_loss_function
 from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
 from gat_recommendation_torch.train.trainer import Trainer
@@ -97,35 +108,43 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--no-sr-moments", action="store_true",
                    help="bf16 moments with round-to-nearest instead of stochastic rounding")
     p.add_argument("--distributed", choices=["auto", "off"], default="auto",
-                   help="auto: a multi-process launch is detected (and raises: one GPU only)")
+                   help="auto: join the process group of a multi-process launch (torchrun's or the "
+                        "coordinator variables); off: a single process")
     p.add_argument("--mesh", action=argparse.BooleanOptionalAction, default=None,
-                   help="train over a device mesh (not ported: raises); default on when more "
-                        "than one GPU is visible")
-    p.add_argument("--n-model", type=int, default=1, help="the mesh's 'model' axis (not ported)")
+                   help="train over a ('data','model') mesh, one process a GPU; default on when the "
+                        "launch has more than one process")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="size of the mesh's 'model' axis (embedding-table row shards)")
     p.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
     return p.parse_args(argv)
 
 
-def multi_process_launch() -> bool:
-    """A launcher started several processes (torchrun's WORLD_SIZE, or the
-    coordinator variables the JAX script reads)."""
-    env = os.environ
-    return (int(env.get("WORLD_SIZE", "1")) > 1 or int(env.get("NUM_PROCESSES", "1")) > 1
-            or bool(env.get("JAX_COORDINATOR_ADDRESS") or env.get("COORDINATOR_ADDRESS")))
+def make_mesh_for(args: argparse.Namespace, device: torch.device):
+    """The ('data', 'model') mesh the flags ask for, or None: joins the
+    launch's process group (``--distributed auto``), then builds a
+    ``(processes / n_model) x n_model`` mesh when ``--mesh`` (default: more
+    than one process) or ``--n-model`` > 1 asks for one."""
+    if args.n_model > 1 and args.mesh is False:
+        raise ValueError(f"--n-model {args.n_model} shards the table over a mesh; drop --no-mesh")
+    launched = args.distributed == "auto" and distributed.initialize(device=device)
+    many = launched and distributed.process_count() > 1
+    if args.mesh is None and not many and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise ValueError(f"{torch.cuda.device_count()} GPUs are visible to one process: launch one process a "
+                         f"GPU (torchrun --nproc-per-node={torch.cuda.device_count()}), or pass --no-mesh "
+                         "to train on one")
+    use_mesh = args.mesh if args.mesh is not None else (many or args.n_model > 1)
+    if not use_mesh:
+        if many:
+            raise ValueError(f"{distributed.process_count()} processes were launched and --no-mesh "
+                             "trains on one: launch one process")
+        return None
+    if args.chain > 1:
+        raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b); pass --chain 1")
+    if not launched:
+        distributed.single_process_group(device)
+    from gat_recommendation_torch.parallel.mesh import make_mesh
 
-
-def check_single_gpu(args: argparse.Namespace, device: torch.device) -> None:
-    """Raise where the JAX script would train over a mesh or several processes."""
-    if args.mesh or args.n_model > 1:
-        raise NotImplementedError("training over a device mesh is not ported yet (ROADMAP A8); "
-                                  "drop --mesh and --n-model")
-    if args.distributed == "auto" and multi_process_launch():
-        raise NotImplementedError("multi-process training is not ported yet (ROADMAP A8); "
-                                  "launch one process, or pass --distributed off")
-    if args.mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs are visible, so the mesh would be on, and training "
-            "over a mesh is not ported yet (ROADMAP A8); pass --no-mesh to train on one GPU")
+    return make_mesh(n_model=args.n_model, device=device.type)
 
 
 def maybe_gcs_download(bucket: str | None, paths: list[str], logger) -> None:
@@ -186,7 +205,7 @@ def build(args: argparse.Namespace):
     model on the device, the optimizer and the Trainer. Draws no parameters."""
     logger = get_logger(__name__)
     device = resolve_device(args.device)
-    check_single_gpu(args, device)
+    mesh = make_mesh_for(args, device)
     set_seed(args.seed)
     split_info = Path(args.train_sessions).parent / "split_info.json"
     maybe_gcs_download(args.gcs_bucket, [args.train_sessions, args.val_sessions, args.graph_edges,
@@ -209,12 +228,21 @@ def build(args: argparse.Namespace):
         model_kwargs["num_heads"] = args.num_heads
     model = create_model(args.model, num_items, device=device, **model_kwargs)
 
+    # Over a mesh --batch-size is the global batch; each process assembles its
+    # data rank's rows, the sparse step's GradIndex comes from the global ids.
+    feed = dict(workers=args.workers)
+    if mesh is not None:
+        from gat_recommendation_torch.parallel.mesh import axis_size, coordinates
+
+        n_data = axis_size(mesh, "data")
+        feed.update(process_index=coordinates(mesh)[0], process_count=n_data,
+                    with_global_ids=args.sparse_grads and n_data > 1)
+        logger.info(f"Mesh: {n_data} x {axis_size(mesh, 'model')} over {distributed.process_count()} processes")
     trainer = Trainer(
         model,
         train_batches=lambda epoch: iterate_batches(train_ds, batch_size=args.batch_size, shuffle=True,
-                                                    seed=args.seed + epoch, workers=args.workers),
-        val_batches=lambda: iterate_batches(val_ds, batch_size=args.batch_size, shuffle=False, seed=0,
-                                            workers=args.workers),
+                                                    seed=args.seed + epoch, **feed),
+        val_batches=lambda: iterate_batches(val_ds, batch_size=args.batch_size, shuffle=False, seed=0, **feed),
         optimizer=make_optimizer(args),
         output_dir=Path(args.output_dir) / args.model,
         max_epochs=args.max_epochs,
@@ -228,6 +256,7 @@ def build(args: argparse.Namespace):
         record_hits=args.record_hits,
         transfer_workers=args.transfer_workers,
         device=device,
+        mesh=mesh,
     )
     return model, trainer, edges
 
@@ -251,15 +280,19 @@ def run(args: argparse.Namespace, trainer: Trainer) -> dict:
     logger = get_logger(__name__)
     history = trainer.train(resume=args.resume)
     logger.info(f"Done. Best recall@10: {trainer.best_val_metric:.4f}")
-    maybe_gcs_upload(args.gcs_bucket, Path(args.output_dir) / args.model, logger)
+    if distributed.is_primary():  # the outputs are rank 0's
+        maybe_gcs_upload(args.gcs_bucket, Path(args.output_dir) / args.model, logger)
     return history
 
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    model, trainer, edges = build(args)
-    initialize(args, model, trainer, edges)
-    run(args, trainer)
+    try:
+        model, trainer, edges = build(args)
+        initialize(args, model, trainer, edges)
+        run(args, trainer)
+    finally:
+        distributed.shutdown()
     return 0
 
 

@@ -18,6 +18,12 @@ optimizer. The Trainer materializes the lazy optimizer before it saves, so
 the table is the dense-AdamW trajectory's and ``last_step`` equals ``count``.
 This is a new format: the JAX package's Orbax checkpoints are not readable
 without JAX, and ``convert.from_jax_params`` carries weights across instead.
+
+A Trainer over a mesh gathers the table-shaped tensors to rank 0, which
+writes this same file (``parallel/mesh.py::unshard``); ``restore`` onto a
+model that holds a row shard (``model.table_offset``) cuts its rows out of
+the whole table, so a checkpoint saved under any mesh or on one GPU loads
+under any other mesh or on one GPU.
 """
 
 from __future__ import annotations
@@ -116,20 +122,37 @@ def restore_params_state(path: str | Path, model: nn.Module, map_location=None) 
     return model
 
 
+def _rows_held(saved: dict, held: dict, offset: int) -> dict:
+    """`saved` with each table-shaped tensor cut to the rows that `held` (the
+    tensors it fills) has, from global row `offset`: a row shard's rows."""
+    from gat_recommendation_torch.parallel.mesh import is_table
+
+    out = {}
+    for name, t in saved.items():
+        rows = held[name].shape[0] if name in held and held[name].dim() else None
+        if is_table(name) and rows is not None and rows != t.shape[0]:
+            t = t[offset:offset + rows]
+        out[name] = t
+    return out
+
+
 def restore(path: str | Path, model: nn.Module, optimizer, opt_state: dict) -> dict:
     """Resume: copy the saved parameters and buffers INTO ``model`` (its
     tensors keep their identity, so an optimizer built over them stays
     bound) and fill `opt_state` (from ``optimizer.init(model)``) through
-    ``optimizer.load_state``. Both manifests are checked first. Returns the
-    meta dict."""
+    ``optimizer.load_state``. Both manifests are checked first. A model that
+    holds a row shard of the table takes its rows of the saved table (and of
+    the moments and ``last_step``). Returns the meta dict."""
     path = Path(path)
     meta = load_meta(path)
     device = model.get_parameter("item_embedding").device
     _check_manifest(meta.get("leaf_paths"), list(model.state_dict()), "model")
     want = list(optimizer.export_state(opt_state, model))
     _check_manifest(meta.get("optimizer_paths"), want, "optimizer")
-    tensors = _load(path, TENSORS_FILE, meta["leaf_paths"], device)
-    saved_opt = _load(path, OPTIMIZER_FILE, meta["optimizer_paths"], device)
+    offset = getattr(model, "table_offset", 0)
+    tensors = _rows_held(_load(path, TENSORS_FILE, meta["leaf_paths"], device), model.state_dict(), offset)
+    saved_opt = _rows_held(_load(path, OPTIMIZER_FILE, meta["optimizer_paths"], device),
+                           optimizer.export_state(opt_state, model), offset)
     model.load_state_dict(tensors, strict=True)
     optimizer.load_state(opt_state, model, saved_opt)
     return meta

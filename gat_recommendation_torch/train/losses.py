@@ -18,12 +18,18 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from gat_recommendation_torch.ops import shard
+
 
 def _masked_mean(per_sample: torch.Tensor, sample_mask: torch.Tensor | None) -> torch.Tensor:
+    """Mean over the valid samples. Under a shard (``ops/shard.py``) the count
+    is the global batch's, summed over the data group, so this rank's share
+    of the global mean comes out (the shares add up to it): a rank whose
+    slots are padding weighs as it does in the whole batch."""
     if sample_mask is None:
         return per_sample.mean()
     m = sample_mask.to(per_sample.dtype)
-    return (per_sample * m).sum() / m.sum().clamp_min(1.0)
+    return (per_sample * m).sum() / shard.sum_over_data(m.sum()).clamp_min(1.0)
 
 
 def _scores_emb(session_emb, target_emb, neg_emb):
@@ -34,7 +40,8 @@ def _scores_emb(session_emb, target_emb, neg_emb):
 
 
 def _gather(item_table, targets, negatives):
-    return item_table[targets], item_table[negatives]
+    """The target and negative rows (through the model group under a shard)."""
+    return shard.lookup(item_table, targets), shard.lookup(item_table, negatives)
 
 
 def bpr_loss_emb(session_emb, target_emb, neg_emb, sample_mask=None):

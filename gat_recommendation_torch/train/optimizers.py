@@ -23,6 +23,12 @@ update launches the kernel, on CPU tensors it runs the plain version; there
 is no switch. ``export_state`` and ``load_state`` carry the state as a flat
 dict of tensors (the checkpoint's optimizer file).
 
+Under a mesh the model holds a row shard of the table (``parallel/mesh.py``,
+``model.table_offset`` its first global row) and the moments and
+``last_step`` are that shard's: every table kernel runs on the shard at that
+row offset, the eager sparse step through ``sharded_sparse_adamw`` (B1) with
+``update_sparse(mesh=)``; ``init`` sizes the moments by the shard.
+
 The table updates take the step's row of the step block
 (``ops/step_block.py``) beside the host count, so that a CUDA graph of the
 train step replays every step with its own count; the host count still
@@ -42,7 +48,7 @@ from torch import nn
 
 from gat_recommendation_torch.ops import lazy_adamw
 from gat_recommendation_torch.ops.embedding_adamw import embedding_adamw
-from gat_recommendation_torch.ops.sparse_adamw import sparse_adamw
+from gat_recommendation_torch.ops.sparse_adamw import sharded_sparse_adamw, sparse_adamw
 
 EMBEDDING_KEY = "item_embedding"
 
@@ -50,6 +56,11 @@ EMBEDDING_KEY = "item_embedding"
 def rest_parameters(model: nn.Module) -> dict[str, nn.Parameter]:
     """Every parameter of `model` but the item table, by name."""
     return {k: p for k, p in model.named_parameters() if k != EMBEDDING_KEY}
+
+
+def _row_offset(model: nn.Module) -> int:
+    """The global row of the model's table row 0 (a row shard's first row)."""
+    return getattr(model, "table_offset", 0)
 
 
 class FusedEmbeddingAdamW:
@@ -158,7 +169,7 @@ class FusedEmbeddingAdamW:
         embedding_adamw(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
             grads[EMBEDDING_KEY].contiguous(), state["count"] if step is None else step,
-            stochastic_rounding=self._stochastic(state), **self._hparams,
+            row_offset=_row_offset(model), stochastic_rounding=self._stochastic(state), **self._hparams,
         )
         self._step_rest(grads, state, model)
         return state
@@ -166,20 +177,30 @@ class FusedEmbeddingAdamW:
     @torch.no_grad()
     def update_sparse(
         self, g_rest: dict, uid: torch.Tensor, summed: torch.Tensor, state: dict, model: nn.Module,
-        step: torch.Tensor | None = None,
+        step: torch.Tensor | None = None, mesh=None,
     ) -> dict:
         """Apply one step with the table gradient pre-reduced as (uid, summed):
         ascending unique row ids with a sentinel tail, and their summed
         gradient rows, instead of a dense [V, D] gradient. `step`: this step's
-        row of the step block (None: built from the count). Returns `state`."""
+        row of the step block (None: built from the count). With `mesh` the
+        model holds its row shard and the table update is B1,
+        ``sharded_sparse_adamw`` on that shard (uid and summed the replicated
+        global ones). Returns `state`."""
         if self.lazy:
             raise ValueError("the lazy optimizer steps through gather_catch_up and update_sparse_lazy")
         state["count"] += 1
-        sparse_adamw(
-            model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
-            uid, summed, state["count"] if step is None else step,
-            stochastic_rounding=self._stochastic(state), **self._hparams,
-        )
+        args = (model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"], uid, summed,
+                state["count"] if step is None else step)
+        if mesh is None:
+            sparse_adamw(*args, stochastic_rounding=self._stochastic(state), **self._hparams)
+        else:
+            from gat_recommendation_torch.parallel.mesh import axis_size, coordinates
+
+            shard, n_shards = coordinates(mesh)[1], axis_size(mesh, "model")
+            if shard * args[0].shape[0] != _row_offset(model):
+                raise ValueError(f"the model's table starts at row {_row_offset(model)}, not at shard {shard}'s")
+            sharded_sparse_adamw(*args, shard=shard, n_shards=n_shards,
+                                 stochastic_rounding=self._stochastic(state), **self._hparams)
         self._step_rest(g_rest, state, model)
         return state
 
@@ -196,7 +217,7 @@ class FusedEmbeddingAdamW:
         return lazy_adamw.gather_catch_up(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
             state["last_step"], uid, state["count"] + 1 if step is None else step,
-            tail_terms=self.lazy_tail_terms, **self._hparams,
+            tail_terms=self.lazy_tail_terms, row_offset=_row_offset(model), **self._hparams,
         )
 
     @torch.no_grad()
@@ -214,7 +235,7 @@ class FusedEmbeddingAdamW:
         lazy_adamw.touched_update_scatter(
             model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
             state["last_step"], uid, w_c, mu_c, nu_c, summed,
-            state["count"] if step is None else step,
+            state["count"] if step is None else step, row_offset=_row_offset(model),
             stochastic_rounding=self._stochastic(state), **self._hparams,
         )
         self._step_rest(g_rest, state, model)
@@ -230,7 +251,7 @@ class FusedEmbeddingAdamW:
             lazy_adamw.materialize(
                 model.get_parameter(EMBEDDING_KEY).data, state["emb_mu"], state["emb_nu"],
                 state["last_step"], state["count"], tail_terms=self.lazy_tail_terms,
-                stochastic_rounding=self._stochastic(state), **self._hparams,
+                row_offset=_row_offset(model), stochastic_rounding=self._stochastic(state), **self._hparams,
             )
         return state
 

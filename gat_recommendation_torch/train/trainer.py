@@ -41,6 +41,17 @@ background thread (``data/batching.prefetch_to_device``, two items ahead,
 stream; the step seeds and the step block stay on the thread that launches
 the steps, so the epoch is the inline one, bit for bit. ``evaluate`` transfers
 inline.
+
+With a ``mesh`` (``parallel/``) the Trainer trains over a ('data', 'model')
+device mesh, one process a GPU: the model's table is cut to this rank's rows
+at construction, the steps are the sharded ones (``parallel/steps.py``; B1 or
+the lazy row kernels per shard, the dense step's kernel 4 per shard), the
+training items are (local batch, ``GlobalBatchMeta``) pairs whose meta's ids
+give the global GradIndex, evaluation runs the two-phase top-k and gathers
+the top-k ids over the data group (the metas carry the global targets and
+masks), so every rank computes the same metrics and stops at the same epoch.
+Rank 0 alone writes files; checkpoints gather the table's rows to it and are
+the single-GPU format, which any mesh restores by cutting its rows.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from gat_recommendation_torch.data.batching import (
     SessionBatch,
     chain_iterator,
     make_grad_index,
+    make_grad_index_from_ids,
     prefetch_to_device,
     stack_batches,
     stack_grad_indices,
@@ -337,7 +349,11 @@ class Trainer:
     at an early stop and at the last epoch. ``defer_best`` keeps the best
     state as a device copy and writes ``checkpoint_best`` once at the end
     (False: at every improvement). ``transfer_workers`` > 1 runs an epoch's
-    transfers on that many threads (``prefetch_to_device``).
+    transfers on that many threads (``prefetch_to_device``). ``mesh``: a
+    ('data', 'model') ``DeviceMesh`` (``parallel/mesh.py::make_mesh``) to
+    train over; `train_batches` and `val_batches` then yield this rank's rows
+    (``iterate_batches(process_index=data coordinate, process_count=n_data,
+    with_global_ids=...)``), and `chain` must be 1.
     """
 
     def __init__(
@@ -360,11 +376,22 @@ class Trainer:
         record_hits: bool = False,
         transfer_workers: int = 1,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         table = model.get_parameter(EMBEDDING_KEY)
         if table.device.type != self.device.type:
             raise ValueError(f"the model is on {table.device}, the Trainer on {self.device}")
+        self.mesh = mesh
+        if mesh is not None:
+            from gat_recommendation_torch.parallel.mesh import device_of, shard_model
+
+            if chain > 1:
+                raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b: NCCL "
+                                          "collectives inside a CUDA graph capture); pass chain=1")
+            if device_of(mesh) != table.device:
+                raise ValueError(f"the mesh's device is {device_of(mesh)}, the model's {table.device}")
+            shard_model(model, mesh)
         self.model = model
         self.train_batches = train_batches
         self.val_batches = val_batches
@@ -400,7 +427,12 @@ class Trainer:
         self.opt_state: dict | None = None
         self._train_step: Callable | None = None
         self._chained_step: Callable | None = None
-        self._eval_step = make_eval_step(self.model, max(self.k_values))
+        if mesh is None:
+            self._eval_step = make_eval_step(self.model, max(self.k_values))
+        else:
+            from gat_recommendation_torch.parallel.topk import make_sharded_eval_step_v2
+
+            self._eval_step = make_sharded_eval_step_v2(self.model, max(self.k_values), mesh)
         # Its graphs hold only the model's tensors, which keep their identity.
         self._chained_eval = make_chained_eval_step(self.model, max(self.k_values)) if self.chain > 1 else None
 
@@ -413,6 +445,13 @@ class Trainer:
         if reset_parameters:
             self.model.reset_parameters(torch.Generator(self.device).manual_seed(self.seed))
         self.opt_state = self.optimizer.init(self.model) if opt_state is None else opt_state
+        if self.mesh is not None:
+            from gat_recommendation_torch.parallel import steps
+
+            sharded = steps.make_sharded_sparse_train_step if self.sparse_embedding_grads else \
+                steps.make_sharded_train_step
+            self._train_step = sharded(self.model, self.loss_fn, self.optimizer, self.opt_state, self.mesh)
+            return self.opt_state
         make = make_sparse_train_step if self.sparse_embedding_grads else make_train_step
         self._train_step = make(self.model, self.loss_fn, self.optimizer, self.opt_state)
         if self.chain > 1:
@@ -420,12 +459,38 @@ class Trainer:
                 self.model, self.loss_fn, self.optimizer, self.opt_state)
         return self.opt_state
 
-    def _transfer(self, batch: SessionBatch):
+    def _transfer(self, item):
         """One host batch to the device; for the sparse step the GradIndex is
-        built on the host (numpy argsort) beside it."""
+        built on the host (numpy argsort) beside it. A (local batch,
+        GlobalBatchMeta) item of a mesh gives the global batch's GradIndex
+        from the meta's ids."""
+        batch, meta = item if isinstance(item, tuple) else (item, None)
         if not self.sparse_embedding_grads:
             return to_device(batch, self.device)
-        return to_device((batch, make_grad_index(batch)), self.device)
+        if meta is not None and meta.ids is not None:
+            gidx = make_grad_index_from_ids(meta.ids)
+        elif self.mesh is not None and self._n_data > 1:
+            raise ValueError("with several data ranks the sparse step needs the global ids "
+                             "(iterate_batches(..., with_global_ids=True))")
+        else:
+            gidx = make_grad_index(batch)
+        return to_device((batch, gidx), self.device)
+
+    @property
+    def _n_data(self) -> int:
+        from gat_recommendation_torch.parallel.mesh import axis_size
+
+        return 1 if self.mesh is None else axis_size(self.mesh, "data")
+
+    @property
+    def _primary(self) -> bool:
+        """Whether this process writes the files (rank 0; the only one without a mesh)."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _barrier(self) -> None:
+        """Under a mesh, wait until every rank is here (after rank 0's writes)."""
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     # A partial group at a bucket boundary runs as chains of this many steps
     # before single steps, as in the JAX package; they replay the same graphs.
@@ -496,7 +561,9 @@ class Trainer:
         device_tops, masks, targets = [], [], []
         # With a chain, full groups of one node bucket are one chained
         # evaluation each; partial groups take single steps. The order stays
-        # the batches', so predictions align with targets.
+        # the batches', so predictions align with targets. Under a mesh an
+        # item is (local batch, GlobalBatchMeta): the top-k ids of the data
+        # ranks are gathered, and the meta holds the global targets and mask.
         groups = chain_iterator(self.val_batches(), self.chain) if self.chain > 1 else (
             [batch] for batch in self.val_batches())
         for group in groups:
@@ -505,14 +572,22 @@ class Trainer:
                 device_tops.append(tops.reshape(-1, tops.shape[-1]))
                 self.chained_eval_dispatches += 1
             else:
-                device_tops.extend(self._eval_step(to_device(batch, self.device)) for batch in group)
-            masks.extend(np.asarray(batch.sample_mask) for batch in group)
-            targets.extend(np.asarray(batch.targets) for batch in group)
+                device_tops.extend(self._eval_step(to_device(item[0] if isinstance(item, tuple) else item,
+                                                             self.device)) for item in group)
+            rows = [item[1] if isinstance(item, tuple) else item for item in group]
+            masks.extend(np.asarray(r.sample_mask) for r in rows)
+            targets.extend(np.asarray(r.targets) for r in rows)
         if not device_tops:
             predictions = np.zeros((0, max(self.k_values)), int)
             targets_arr = np.zeros((0,), int)
         else:
-            all_tops = torch.cat(device_tops, dim=0).cpu().numpy()
+            if self.mesh is not None:
+                from gat_recommendation_torch.parallel.distributed import allgather
+
+                group = self.mesh.get_group("data")
+                all_tops = np.concatenate([allgather(t, group) for t in device_tops])
+            else:
+                all_tops = torch.cat(device_tops, dim=0).cpu().numpy()
             mask = np.concatenate(masks)
             predictions = all_tops[mask]
             targets_arr = np.concatenate(targets)[mask]
@@ -539,7 +614,10 @@ class Trainer:
 
     def _save_hits(self) -> None:
         """The hit vectors, padded at the front to the evaluations in the
-        history, so that row i always aligns with history["val_metrics"][i]."""
+        history, so that row i always aligns with history["val_metrics"][i]
+        (rank 0 only under a mesh)."""
+        if not self._primary:
+            return
         n = len(self.history["val_metrics"])
         save_hits(self._hits_path, [None] * (n - len(self.hits)) + list(self.hits))
 
@@ -550,15 +628,25 @@ class Trainer:
         logger.info("%s checkpoint_%s: %d bytes in %.2f s", op, which, size, seconds)
 
     def _write_checkpoint(self, which: str, model_state=None, optimizer_state=None) -> None:
-        """Write checkpoint_<which> from the live state or from a snapshot."""
+        """Write checkpoint_<which> from the live state or from a snapshot.
+        Under a mesh the model group of rank 0 gathers the table-shaped
+        tensors to it, and rank 0 writes the single-GPU file; every rank
+        waits for it."""
         t0 = time.perf_counter()
-        checkpoint.save(
-            self.output_dir / f"checkpoint_{which}", self.model, epoch=self.current_epoch,
-            best_val_metric=self.best_val_metric, history=self.history,
-            model_state=model_state,
-            optimizer_state=optimizer_state or self.optimizer.export_state(self.opt_state, self.model),
-        )
-        self._log_checkpoint("save", which, self.current_epoch, time.perf_counter() - t0)
+        optimizer_state = optimizer_state or self.optimizer.export_state(self.opt_state, self.model)
+        if self.mesh is not None:
+            from gat_recommendation_torch.parallel.mesh import unshard
+
+            model_state = unshard(self.model.state_dict() if model_state is None else model_state, self.mesh)
+            optimizer_state = unshard(optimizer_state, self.mesh)
+        if self._primary:
+            checkpoint.save(
+                self.output_dir / f"checkpoint_{which}", self.model, epoch=self.current_epoch,
+                best_val_metric=self.best_val_metric, history=self.history,
+                model_state=model_state, optimizer_state=optimizer_state,
+            )
+            self._log_checkpoint("save", which, self.current_epoch, time.perf_counter() - t0)
+        self._barrier()
         if which == "latest" and self.record_hits and self.hits:
             self._save_hits()  # the sidecar keeps a resume in step
 
@@ -575,7 +663,7 @@ class Trainer:
         Returns the optimizer state."""
         self.init_state(reset_parameters=False)
         t0 = time.perf_counter()
-        meta = checkpoint.restore(
+        meta = checkpoint.restore(  # under a mesh each rank cuts its rows of the whole file
             self.output_dir / f"checkpoint_{which}", self.model, self.optimizer, self.opt_state
         )
         self._log_checkpoint("restore", which, meta["epoch"], time.perf_counter() - t0)
@@ -654,9 +742,11 @@ class Trainer:
             self.current_epoch = epoch_now
             self._best_snapshot = None
 
-        self.output_dir.mkdir(parents=True, exist_ok=True)
-        (self.output_dir / "history.json").write_text(json.dumps(self.history, indent=2))
-        if self.record_hits and self.hits:
-            self._save_hits()
+        if self._primary:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
+            (self.output_dir / "history.json").write_text(json.dumps(self.history, indent=2))
+            if self.record_hits and self.hits:
+                self._save_hits()
+        self._barrier()
         return self.history
 

@@ -150,13 +150,14 @@ def time_attention(libs: dict, gen: torch.Generator) -> None:
         for name, lib in libs.items():
             fn = lib.session_attention_forward_variant
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p]
             row = {"variant": name, "B": B, "N": N, "library_ms": sdpa}
             for staged, batch in ((1, B), (0, B), (0, 1)):
                 def run():
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), 0, out.data_ptr(), batch, N,
                              HEADS, d, math.sqrt(d), 1.0 - p_drop, keep_threshold(p_drop), seed_on_card.data_ptr(),
-                             staged,
+                             0, staged,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError_t {err}")
@@ -196,12 +197,12 @@ def time_backward(libs: dict, gen: torch.Generator) -> None:
         for name, lib in libs.items():
             fn = lib.session_attention_backward
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
 
             def run():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), adj.data_ptr(), 0, dout.data_ptr(),
                          *(t.data_ptr() for t in got), B, N, HEADS, d, math.sqrt(d), 1.0 - p_drop,
-                         keep_threshold(p_drop), seed_on_card.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                         keep_threshold(p_drop), seed_on_card.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError_t {err}")
 

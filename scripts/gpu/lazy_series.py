@@ -23,6 +23,10 @@ port's nvcc flags into build/kernel_variants/:
 3. each version's result at T = 64 against the plain version: weights
    within chip_smoke.py's TABLE_TOL, moments bit-equal.
 
+The port's wrappers drive every version, so a given source must take the
+shipped C interface: sources of commit 59bf4b8 and earlier lack the
+``row_offset`` argument of the three entry points and cannot be compared.
+
 chip_smoke.py's phase 7 inputs otherwise (table 0.05 N(0,1), mu 1e-3 N(0,1),
 nu 1e-6 U(0,1), one row in 16 never touched). Nothing here is used by the port.
 """

@@ -112,8 +112,24 @@ def test_main_device_runs_and_prints_one_json_line(capsys):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        bench.main(["--mesh", "1x1"])
+    """What of the mesh is not ported: chained steps under it (ROADMAP A8b)."""
+    with pytest.raises(NotImplementedError, match="A8b"):
+        bench.main_e2e(100, 0, 1, 32, lazy=True, num_items=ITEMS, device="cpu", mesh_shape=(1, 1))
+
+
+def test_bench_over_a_1x1_mesh_runs_and_leaves_its_process_group(capsys):
+    """``--mesh 1x1`` on the CPU: a gloo group of one, the sharded lazy step,
+    one JSON line named for the mesh; the group is gone afterwards."""
+    from gat_recommendation_torch.parallel import distributed
+
+    try:
+        result = bench.main_e2e(300, 0, 1, 1, lazy=True, num_items=ITEMS, device="cpu", mesh_shape=(1, 1))
+    finally:
+        distributed.shutdown()
+    assert result["_detail"]["mesh"] == "1x1" and result["value"] > 0
+    bench.emit(result)
+    _check_line(capsys.readouterr().out, "torch_train_sessions_per_sec_per_chip_e2e_mesh1x1")
+    assert not torch.distributed.is_initialized()
 
 
 def test_bench_asks_for_the_card_unless_told_otherwise(monkeypatch):

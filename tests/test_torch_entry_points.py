@@ -89,21 +89,32 @@ def test_every_flag_has_the_jax_scripts_default(script, monkeypatch):
     assert len(want) >= 2
 
 
-@pytest.mark.parametrize("argv,env,gpus,match", [
-    (["--mesh"], {}, 0, "A8"),
-    (["--n-model", "2", "--no-mesh"], {}, 0, "A8"),
-    ([], {"WORLD_SIZE": "2"}, 0, "multi-process"),
-    ([], {}, 2, "--no-mesh"),
+@pytest.mark.parametrize("argv,env,gpus,error,match", [
+    # a mesh larger than the launch raises with both counts; it never shrinks
+    (["--mesh", "--n-model", "2", "--chain", "1"], {}, 0, ValueError,
+     "a 'model' axis of 2 needs a multiple of 2 processes; the launch has 1"),
+    (["--n-model", "2", "--no-mesh"], {}, 0, ValueError, "drop --no-mesh"),
+    # a torchrun launch without its rendezvous variables fails to join, and raises
+    ([], {"WORLD_SIZE": "2"}, 0, ValueError, "MASTER_ADDR"),
+    # two GPUs for one process: one process a GPU, or --no-mesh
+    ([], {}, 2, ValueError, "torchrun --nproc-per-node=2"),
+    # chained steps under a mesh are not ported
+    (["--mesh", "--chain", "4"], {}, 0, NotImplementedError, "A8b"),
 ])
-def test_mesh_and_multi_process_launches_raise(argv, env, gpus, match, monkeypatch):
+def test_mesh_and_multi_process_launches_raise(argv, env, gpus, error, match, monkeypatch, tmp_path):
+    """What the flags and the launch ask for that cannot run raises, and the
+    process group a mesh started is left on the way out."""
+    from gat_recommendation_torch.parallel import distributed
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if gpus:  # the card count is all the guard reads; nothing is allocated
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
     device = [] if gpus else ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        train_baseline.main([*argv, *device])
+    with pytest.raises(error, match=match):  # before any input is read
+        train_baseline.main([*argv, *device, *data_flags(tmp_path), *SMALL_MODEL, "--output-dir", str(tmp_path)])
+    assert not torch.distributed.is_initialized() and distributed.process_count() == 1
 
 
 class _Client:

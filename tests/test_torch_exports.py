@@ -29,7 +29,7 @@ from gat_recommendation_tpu.models import base as jax_base
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-SUBPACKAGES = ("data", "models", "ops", "serving", "train", "utils")
+SUBPACKAGES = ("data", "models", "ops", "parallel", "serving", "train", "utils")
 NOT_PORTED = {"utils": {"enable_persistent_cache"}}
 
 _JAX_ALL = """

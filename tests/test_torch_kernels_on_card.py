@@ -1039,3 +1039,130 @@ def test_every_model_runs_its_dropouts_through_the_kernels(cuda, name, kw, node_
         results.append((out.detach().cpu(), grad.cpu()))
     for got, want in zip(*results):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- parallel training: row shards of the table, dropout counters of a data rank ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype,sr", [(torch.float32, False), (torch.bfloat16, True)], ids=["f32", "bf16+sr"])
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_sharded_sparse_adamw_shards_equal_one_kernel_call_bit_for_bit(cuda, n_shards, moment_dtype, sr):
+    """B1: kernel 3 on each row shard (views of one table) at its row offset
+    EQUALS one call over the whole table, table and moments; against the
+    plain twin the table within TABLE_TOL and the moments EQUAL; one launch a
+    shard, counted by the sharded wrapper alone."""
+    rows, D = 4096, 256
+    table, mu, nu, uid, summed = _adamw_inputs(cuda, rows, D, 1024, 700, moment_dtype)
+    whole = [t.clone() for t in (table, mu, nu)]
+    shards = [t.clone() for t in (table, mu, nu)]
+    plain = [t.clone() for t in (table, mu, nu)]
+    per = rows // n_shards
+    before, single = sp.sharded_sparse_adamw.launches, sp.sparse_adamw.launches
+    sp.sparse_adamw(*whole, uid, summed, 5, stochastic_rounding=sr, **HYPER)
+    for s in range(n_shards):
+        rows_s = slice(s * per, (s + 1) * per)
+        sp.sharded_sparse_adamw(*(t[rows_s] for t in shards), uid, summed, 5, shard=s, n_shards=n_shards,
+                                stochastic_rounding=sr, **HYPER)
+        sp.sharded_sparse_adamw_reference(*(t[rows_s] for t in plain), uid, summed, 5, shard=s, n_shards=n_shards,
+                                          stochastic_rounding=sr, **HYPER)
+    torch.cuda.synchronize()
+    assert sp.sharded_sparse_adamw.launches == before + n_shards and sp.sparse_adamw.launches == single + 1
+    assert all(_same_bits(a, b) for a, b in zip(shards, whole))
+    torch.testing.assert_close(shards[0], plain[0], **TABLE_TOL)
+    assert _same_bits(shards[1], plain[1]) and _same_bits(shards[2], plain[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype,nu_dtype,sr", LAZY_MOMENTS[:1] + LAZY_MOMENTS[2:3])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_lazy_kernels_on_row_shards_equal_the_whole_table(cuda, n_shards, mu_dtype, nu_dtype, sr):
+    """The three lazy kernels at each shard's row offset: the gathers of the
+    shards summed (each uid row gathered by its owner, zeros elsewhere), the
+    touched updates and materialize put together EQUAL the whole table's
+    kernels; against the plain versions at the same offsets as without one."""
+    rows, D, count = 4096, 256, 900
+    table, mu, nu, last, uid, summed = _lazy_inputs(cuda, rows, D, 1024, 700, count, mu_dtype, nu_dtype)
+    want = la.gather_catch_up(table, mu, nu, last, uid, count, **HYPER)
+    per = rows // n_shards
+    parts = [la.gather_catch_up(table[s * per:(s + 1) * per], mu[s * per:(s + 1) * per], nu[s * per:(s + 1) * per],
+                                last[s * per:(s + 1) * per], uid, count, row_offset=s * per, **HYPER)
+             for s in range(n_shards)]
+    plain = la.gather_catch_up_reference(table[per:2 * per], mu[per:2 * per], nu[per:2 * per], last[per:2 * per],
+                                         uid, count, row_offset=per, **HYPER)
+    torch.cuda.synchronize()
+    for i in range(3):  # equal values (a gathered -0.0 plus the other shards' +0.0 is +0.0)
+        assert torch.equal(sum(p[i] for p in parts), want[i])
+    torch.testing.assert_close(parts[1][0], plain[0], **TABLE_TOL)
+    assert _same_bits(parts[1][1], plain[1]) and _same_bits(parts[1][2], plain[2])
+    whole = [t.clone() for t in (table, mu, nu, last)]
+    sharded = [t.clone() for t in (table, mu, nu, last)]
+    twin = [t.clone() for t in (table, mu, nu, last)]
+    la.touched_update_scatter(*whole, uid, *want, summed, count, stochastic_rounding=sr, **HYPER)
+    la.materialize(*whole, count + 3, stochastic_rounding=sr, **HYPER)
+    for s in range(n_shards):
+        view = [t[s * per:(s + 1) * per] for t in sharded]
+        la.touched_update_scatter(*view, uid, *want, summed, count, stochastic_rounding=sr, row_offset=s * per,
+                                  **HYPER)
+        la.materialize(*view, count + 3, stochastic_rounding=sr, row_offset=s * per, **HYPER)
+    view = [t[per:2 * per] for t in twin]
+    la.touched_update_scatter_reference(*view, uid, *want, summed, count, stochastic_rounding=sr, row_offset=per,
+                                        **HYPER)
+    la.materialize_reference(*view, count + 3, stochastic_rounding=sr, row_offset=per, **HYPER)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(sharded, whole))
+    torch.testing.assert_close(sharded[0][per:2 * per], twin[0][per:2 * per], **TABLE_TOL)
+    assert all(_same_bits(a[per:2 * per], b[per:2 * per]) for a, b in zip(sharded[1:], twin[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 56, 256), (8, 8, 64), (32, 4, 16, 16)])
+def test_node_dropout_kernel_with_an_offset_draws_the_slice_of_the_whole(cuda, shape):
+    """A data rank's rows dropped at the counter offset of its first session
+    EQUAL the whole batch's draw at those rows, and the plain version at the
+    same offset; forward and backward."""
+    from gat_recommendation_torch.ops import masked
+
+    gen = torch.Generator(cuda).manual_seed(8)
+    x, g = torch.randn(shape, device=cuda, generator=gen), torch.randn(shape, device=cuda, generator=gen)
+    seed = 2**62 + 7
+    whole = nd.node_dropout(x, 0.1, seed)
+    per_session = x.numel() // shape[0]
+    for lo, hi in ((0, shape[0] // 2), (shape[0] // 2, shape[0])):
+        leaf = x[lo:hi].clone().requires_grad_(True)
+        part = nd.node_dropout(leaf, 0.1, seed, offset=lo * per_session)
+        (grad,) = torch.autograd.grad(part, leaf, g[lo:hi])
+        assert torch.equal(part, whole[lo:hi])
+        assert torch.equal(part, masked.dropout(x[lo:hi], 0.1, True, seed, offset=lo * per_session))
+        assert torch.equal(grad, nd.node_dropout(g, 0.1, seed)[lo:hi])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(512, 56), (512, 8), (4, 8), (64, 16)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_attention_kernels_with_a_first_session_draw_the_whole_batchs_bits(cuda, B, N, packed):
+    """Kernel 1 on a data rank's sessions with its first session b0 keeps
+    the weights the whole batch keeps at sessions b0 + b: forward and
+    backward within the attention tolerances of the whole batch's kernel
+    output at those sessions (the forward kernel may differ with B) and of
+    the plain version at the same b0, and the zero pattern of the output
+    equal."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    q, k, v, dout = (torch.randn(B, N, 256, device=cuda, generator=gen) for _ in range(4))
+    adj = torch.rand(B, N, N, device=cuda, generator=gen) < 0.3
+    if packed:
+        adj = torch.from_numpy(np.packbits(adj.cpu().numpy(), axis=-1)).to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    whole = sa.session_attention(*leaves, adj, 2, 0.1, 77, packed=packed)
+    grads = torch.autograd.grad(whole, leaves, dout)
+    lo, hi = B // 2, B
+    part_leaves = [t[lo:hi].clone().requires_grad_(True) for t in (q, k, v)]
+    part = sa.session_attention(*part_leaves, adj[lo:hi], 2, 0.1, 77, packed=packed, first_session=lo)
+    part_grads = torch.autograd.grad(part, part_leaves, dout[lo:hi])
+    plain = sa.session_attention_reference(q[lo:hi], k[lo:hi], v[lo:hi], adj[lo:hi], 2, 0.1, 77, packed, lo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(part, whole[lo:hi], **ATTN_TOL)
+    torch.testing.assert_close(part, plain, **ATTN_TOL)
+    assert torch.equal(part == 0, whole[lo:hi] == 0)
+    for got, want in zip(part_grads, grads):
+        torch.testing.assert_close(got, want[lo:hi], **ATTN_GRAD_TOL)

@@ -39,3 +39,25 @@ def test_train_baseline_matches_the_jax_script(processed, tmp_path, monkeypatch,
         for key, value in w.items():
             assert g[key] == pytest.approx(value, abs=1e-9), key
     assert want["val_metrics"][-1]["recall@20"] > 0
+
+
+def test_train_baseline_over_a_mesh_matches_the_jax_scripts_mesh(processed, tmp_path, monkeypatch):
+    """``--mesh --chain 1`` (lazy AdamW) on the CPU: the port on a 1x1 mesh
+    (one process, a gloo group of one), the JAX script on its 4x2 mesh over
+    the 8 CPU devices (``--n-model 2``); the histories held as above, and the
+    process group left at the end of the run."""
+    from gat_recommendation_torch.parallel import distributed
+
+    numpy_engines(monkeypatch)
+    argv = [*data_flags(processed), *SMALL_MODEL, "--chain", "1", "--lazy-adamw", "--mesh"]
+    start = jax_train([*argv, "--output-dir", str(tmp_path / "jax"), "--n-model", "2"], monkeypatch)
+    try:
+        trainer = port_train([*argv, "--output-dir", str(tmp_path / "port")], start)
+        assert trainer.mesh is not None and tuple(trainer.mesh.shape) == (1, 1)
+    finally:
+        distributed.shutdown()
+    got, want = history(tmp_path / "port"), history(tmp_path / "jax")
+    np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-5)
+    for g, w in zip(got["val_metrics"], want["val_metrics"], strict=True):
+        for key, value in w.items():
+            assert g[key] == pytest.approx(value, abs=1e-9), key

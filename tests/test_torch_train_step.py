@@ -395,7 +395,8 @@ def test_factories_default_to_the_card_and_raise_without_one():
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    """What still raises: multi-GPU training, the Recommender's refusal of an
+    """What still raises: chained steps over a mesh (multi-GPU training
+    itself is ported; ROADMAP A8b), the Recommender's refusal of an
     FFN checkpoint (as the JAX Recommender's), an optimizer without a sparse
     update. The FFN branch, GAT and GraphSAGE, which raised until they were
     ported, build on the CPU, and the approximate top-k, which raised until
@@ -406,8 +407,8 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
 
     model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
                                   laplacian_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bench.main(["--mesh", "1x1"])  # multi-GPU training
+    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):  # chained steps over a mesh
+        bench.main_e2e(100, 0, 1, 32, lazy=True, num_items=50, device="cpu", mesh_shape=(1, 1))
     sess = torch.randn(1, 8, generator=torch.Generator().manual_seed(0))
     approx = full_catalog_topk(sess, model.item_embedding, 5, 50, method="approx")
     dense = full_catalog_topk(sess, model.item_embedding, 5, 50, method="dense")
