@@ -212,8 +212,20 @@ Phases, each fatal on failure (nothing is caught and carried on):
      dropout masks equal, also of two simulated data ranks' halves), the lazy
      mesh run saved and loaded on one GPU; (c) bench --mesh 1x1 --chain 1
      against --chain 1 on phase 11's 30,000 sessions, in turns mesh, plain,
-     plain, mesh (sessions/s; the first pair with a traced epoch).
-     The mesh path's launches ((b)'s and (c)'s mesh runs) counted.
+     plain, mesh, the first pair with a traced epoch (sessions/s, busy
+     seconds, idle share; every run with its windows' host account); (d) the
+     chained mesh (A8b): full-width Trainers on the 1x1 NCCL mesh at chain 32
+     (lazy, and eager through B1; dropout 0.1; an epoch of phase 11's corpus,
+     whose smallest bucket holds a full group and a partial one, and an
+     evaluation) EQUAL to the same Trainers at chain 1 on the mesh and to the
+     single-GPU Trainer at chain 32 (state, loss, metrics, top-k ids), with
+     the NCCL version, the chained dispatches and the graphs, captured with
+     the NCCL collectives inside (no fallback); (e) bench --mesh 1x1 --chain
+     32 against --chain 32 on the same sessions, in turns mesh, plain, plain,
+     mesh; each bench's timed epoch split by what the host did. The mesh
+     path's launches ((b)'s and (d)'s mesh runs, the mesh
+     bench of (c) and the first of (e)) counted, the chained ones through the
+     graph replays.
  17. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
@@ -318,6 +330,7 @@ from gat_recommendation_torch.train import checkpoint
 from gat_recommendation_torch.train.losses import create_loss_function
 from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
 from gat_recommendation_torch.train.trainer import (
+    SUBCHAIN,
     Trainer,
     make_chained_sparse_train_step,
     make_eval_step,
@@ -1159,6 +1172,14 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(bits), b.view(bits))
 
 
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, whatever the dtype and shape (integer and 0-dim
+    tensors by value)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return _same_bits(a.reshape(-1), b.reshape(-1)) if a.is_floating_point() else torch.equal(a, b)
+
+
 def _fused_adamw_library(w, mu, nu, grad, prepare=None):
     """torch._fused_adamw_ on the same tensors (float32 moments only), or None
     if this PyTorch has no such call. `prepare` runs first inside the timed
@@ -1946,7 +1967,7 @@ def chained_corpus() -> tuple[SessionDataset, list, list]:
     dataset = make_dataset(np.random.default_rng(3), CHAIN_SESSIONS)
     epoch = list(iterate_batches(dataset, TRAIN_BATCH, shuffle=True, seed=0))
     counts = {n: sum(b.nodes_per_session == n for b in epoch) for n in BUCKETS}
-    if counts[8] < CHAIN + Trainer.SUBCHAIN or not all(counts.values()):
+    if counts[8] < CHAIN + SUBCHAIN or not all(counts.values()):
         raise AssertionError(f"the chained corpus's buckets {counts} hold no full group and sub-chain")
     val = [b for b in epoch if b.nodes_per_session == 8][:CHAIN] + [b for b in epoch if b.nodes_per_session == 56][:1]
     log(f"[phase 8] chained corpus: {CHAIN_SESSIONS} sessions, {len(epoch)} batches of {TRAIN_BATCH} "
@@ -3390,6 +3411,10 @@ def studies_and_packing(gen: torch.Generator, processed: Path, bench_results: li
 MESH_N_MODELS = (1, 2, 4, 8)
 MESH_TRAIN_STEPS, MESH_VAL_BATCHES = 4, 2  # batches of 512 a Trainer run in (b)
 MESH_TOL = dict(loss_rtol=1e-5, weight_atol=1e-6)  # the CPU tests' tolerances
+# (d): the chain of train_baseline's default, over an epoch of phase 11's corpus
+# (its smallest bucket holds a full group and a partial one); evaluated batches.
+MESH_CHAIN, MESH_CHAIN_VAL_BATCHES = 32, 3
+NCCL_CAPTURE_MIN = (2, 9, 6)  # the first NCCL release that a CUDA graph may capture
 
 
 def check_sharded_sparse_adamw(gen: torch.Generator, moment_dtype: torch.dtype, stochastic: bool,
@@ -3584,11 +3609,11 @@ def mesh_against_one_gpu(mesh, epoch: list, workdir: Path) -> tuple[dict, dict]:
 
 
 def bench_over_the_mesh() -> tuple[list, dict]:
-    """(c) the bench at BENCH_SESSIONS sessions, chain 1, lazy, in turns
-    ``--mesh 1x1`` (the sharded step on the 1x1 NCCL mesh), without the mesh,
-    without, with; the first pair with one traced epoch (the device's busy
-    seconds and idle share). Returns the four results and the launches of
-    the first mesh run (counted from 0)."""
+    """(c) the bench at BENCH_SESSIONS sessions, chain 1, lazy, 3/3 threads,
+    in turns ``--mesh 1x1`` (the sharded step on the 1x1 NCCL mesh), without
+    the mesh, without, with; the first pair with one traced epoch (the
+    device's busy seconds and idle share). Returns the results and the
+    launches of the first mesh run (counted from 0)."""
     results, launches = [], None
     for i, mesh_shape in enumerate(((1, 1), None, None, (1, 1))):
         reset_launch_counts()
@@ -3607,11 +3632,149 @@ def bench_over_the_mesh() -> tuple[list, dict]:
     return results, launches
 
 
+def mesh_chain_epoch() -> tuple[list, list, dict]:
+    """(d)'s batches: one shuffled epoch of phase 11's corpus (the bench's
+    BENCH_SESSIONS sessions over the full catalog, batches of 512 from the
+    C++ engine), MESH_CHAIN_VAL_BATCHES of them to evaluate, and the batches
+    of each node bucket. The smallest bucket must hold a full group of
+    MESH_CHAIN and a partial group with a sub-chain."""
+    t0 = time.perf_counter()
+    dataset, _ = bench.make_corpus(BENCH_SESSIONS)
+    epoch = list(iterate_batches(dataset, TRAIN_BATCH, shuffle=True, seed=0))
+    counts = {n: sum(b.nodes_per_session == n for b in epoch) for n in sorted({b.nodes_per_session for b in epoch})}
+    if counts[8] < MESH_CHAIN + SUBCHAIN:
+        raise AssertionError(f"phase 16 (d): the buckets {counts} hold no full group of {MESH_CHAIN} and sub-chain")
+    val = [b for b in epoch if b.nodes_per_session == 8][:MESH_CHAIN_VAL_BATCHES - 1] + \
+        [b for b in epoch if b.nodes_per_session != 8][:1]
+    log(f"[phase 16] (d) {len(dataset)} sessions, {len(epoch)} batches of {TRAIN_BATCH} by bucket {counts}, "
+        f"assembled in {time.perf_counter() - t0:.1f} s")
+    return epoch, val, counts
+
+
+def chained_dispatches_of(counts: dict, chain: int) -> int:
+    """The chained dispatches of an epoch with `counts` batches a node bucket:
+    each full group, then each SUBCHAIN run of a partial group (chain > SUBCHAIN)."""
+    return sum(c // chain + (c % chain) // SUBCHAIN * (chain > SUBCHAIN) for c in counts.values())
+
+
+def chained_mesh_against_unchained(mesh, epoch: list, val: list, counts: dict, workdir: Path) -> tuple[dict, dict]:
+    """(d) Trainers at full width (the optimized Graph Transformer, 466,865
+    items, D = 256, batch 512, dropout 0.1), lazy and eager (B1): the 1x1
+    NCCL mesh at chain MESH_CHAIN against the mesh at chain 1 and against
+    the single-GPU Trainer at chain MESH_CHAIN, from the same seeded weights
+    and batches: an epoch, then an evaluation (unchained under the mesh).
+    Held EQUAL: the epoch loss, every tensor of the state, the metrics and
+    the first evaluated batch's top-k ids. The chained mesh runs are counted
+    from 0 (through the graph replays: per step 2 attention forward and 2
+    backward, 4 node dropout, and 1 gather and 1 touched update, or 1 B1;
+    per evaluated batch 2 forward and 1 scoring; per evaluation 1
+    materialize), their chained dispatches must be the epoch's full groups
+    and sub-chains, and their graphs (with the NCCL collectives inside) must
+    have been captured. Returns the results and the counted launches."""
+    dev = torch.device("cuda")
+    nccl = torch.cuda.nccl.version()
+    if tuple(nccl) < NCCL_CAPTURE_MIN:
+        raise AssertionError(f"phase 16 (d): NCCL {nccl} cannot be captured in a CUDA graph (from {NCCL_CAPTURE_MIN})")
+    want_dispatches = chained_dispatches_of(counts, MESH_CHAIN)
+    n_steps, n_val = len(epoch), len(val)
+    out, launches = {"nccl_version": ".".join(map(str, nccl)), "chain": MESH_CHAIN, "steps": n_steps,
+                     "val_batches": n_val, "buckets": counts}, {}
+    for kind in ("lazy", "eager"):
+        runs = {}
+        for label, m, chain in (("mesh_chained", mesh, MESH_CHAIN), ("mesh_chain_1", mesh, 1),
+                                ("one_gpu_chained", None, MESH_CHAIN)):
+            t = Trainer(make_training_model(DROPOUT), lambda e: iter(epoch), lambda: iter(val),
+                        optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=kind == "lazy"),
+                        output_dir=workdir / f"{kind}_{label}", loss_fn=create_loss_function("dual"),
+                        sparse_embedding_grads=True, chain=chain, device="cuda", mesh=m)
+            t.init_state(reset_parameters=False)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = t.train_epoch()
+            metrics = t.evaluate()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if label == "mesh_chained":
+                table = dict(lazy_gather_catch_up=n_steps, lazy_touched_update=n_steps, lazy_materialize=1) \
+                    if kind == "lazy" else dict(sharded_sparse_adamw=n_steps)
+                got = expect_launches(f"phase 16 (d) {kind} chained mesh", session_attention=2 * (n_steps + n_val),
+                                      session_attention_backward=2 * n_steps, score_chunkmax=n_val,
+                                      node_dropout=4 * n_steps, **table)
+                launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+                cache = t._chained_step.graphs
+                if t.chained_dispatches != want_dispatches or not cache.graphs or t._chained_eval is not None:
+                    raise AssertionError(f"phase 16 (d) {kind}: {t.chained_dispatches} chained dispatches (want "
+                                         f"{want_dispatches}), {len(cache.graphs)} graphs, chained eval "
+                                         f"{t._chained_eval is not None} (want none under the mesh)")
+            tops = t._eval_step(to_device(val[0], dev))
+            runs[label] = (t, loss, metrics, tops, seconds)
+        chained_t, loss, metrics, tops, seconds = runs["mesh_chained"]
+        row = {"loss": loss, "metrics": metrics, "chained_dispatches": chained_t.chained_dispatches,
+               "graphs": _graph_stats(chained_t._chained_step.graphs),
+               "seconds": {label: r[4] for label, r in runs.items()}}
+        state = _state_of(chained_t)
+        for label in ("mesh_chain_1", "one_gpu_chained"):
+            other, loss2, metrics2, tops2, _ = runs[label]
+            state2 = _state_of(other)
+            differ = [k for k in state2 if not _bit_equal(state[k], state2[k])]
+            if loss2 != loss or metrics2 != metrics or not torch.equal(tops, tops2) or differ or \
+                    set(state) != set(state2):
+                raise AssertionError(f"phase 16 (d) {kind}: the chained mesh run against {label}: loss {loss} / "
+                                     f"{loss2}, metrics {metrics} / {metrics2}, ids equal {torch.equal(tops, tops2)}, "
+                                     f"state tensors that differ {differ}")
+            row[f"equal_to_{label}"] = {"state_tensors": len(state2), "loss": loss2, "ids_equal": True}
+        row["one_gpu_chained_dispatches"] = runs["one_gpu_chained"][0].chained_dispatches
+        out[kind] = row
+        del runs, chained_t, state, state2, other
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def bench_chained_over_the_mesh() -> tuple[list, dict]:
+    """(e) the bench at BENCH_SESSIONS sessions, chain MESH_CHAIN, lazy, 3/3
+    threads, in turns ``--mesh 1x1`` (the chained sharded step on the 1x1
+    NCCL mesh), without the mesh, without, with; the first pair with one
+    traced epoch. The first mesh run is counted from 0 through the replays:
+    per step 2 attention forward, 2 backward, 1 gather, 1 touched update, 4
+    node dropout. Returns the four results and those launches."""
+    results, launches = [], None
+    for i, mesh_shape in enumerate(((1, 1), None, None, (1, 1))):
+        reset_launch_counts()
+        result = bench.main_e2e(BENCH_SESSIONS, 3, BENCH_EPOCHS, MESH_CHAIN, lazy=True, transfer_workers=3,
+                                mesh_shape=mesh_shape, profile=i < 2)
+        detail = result["_detail"]
+        if launches is None:
+            steps = detail["steps_per_epoch"] * (2 * BENCH_EPOCHS + 4)  # warm-up, short, long, traced
+            launches = expect_launches(
+                "phase 16 (e) bench --mesh 1x1 --chain 32", session_attention=2 * steps,
+                session_attention_backward=2 * steps, lazy_gather_catch_up=steps, lazy_touched_update=steps,
+                node_dropout=4 * steps)
+        if not (np.isfinite(result["value"]) and result["value"] > 0):
+            raise AssertionError(f"phase 16 (e) bench: {result}")
+        if detail["chain"] != MESH_CHAIN or detail["mesh"] != (None if mesh_shape is None else "1x1"):
+            raise AssertionError(f"phase 16 (e) bench did not run the path asked for: {detail}")
+        results.append(result)
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+def host_split(detail: dict) -> dict:
+    """The bench's timed windows' host seconds an epoch, by what the host
+    did (``bench.HostAccount``): waiting on the prefetch thread, chained
+    dispatches, single steps, the fence, and collections inside them."""
+    windows = [detail["host"][w] for w in ("short", "long")]
+    epochs = sum(len(w["epoch_host_s"]) for w in windows)
+    return {k: sum(w[f"{k}_s"] for w in windows) / epochs for k in ("wait", "chained", "single", "fence", "gc")}
+
+
 def mesh_phase(gen: torch.Generator, epoch: list) -> tuple[dict, dict]:
     """Phase 16: (a) B1 at full width, (b) the 1x1 NCCL mesh's Trainers
-    against one GPU's, (c) the bench over the mesh against without it.
-    Returns the results and the mesh path's launches ((b)'s mesh runs and
-    (c)'s mesh bench)."""
+    against one GPU's, (c) the bench over the mesh against without it, (d)
+    the chained mesh Trainers against the unchained ones and one GPU's, (e)
+    the chained bench over the mesh against without it. Returns the results
+    and the mesh path's launches ((b)'s and (d)'s mesh runs, (c)'s and (e)'s
+    first mesh bench)."""
     t0 = time.perf_counter()
     out = {"b1": {}}
     for label, dtype, stochastic in (("f32", torch.float32, False), ("bf16+sr", torch.bfloat16, True)):
@@ -3625,12 +3788,23 @@ def mesh_phase(gen: torch.Generator, epoch: list) -> tuple[dict, dict]:
             out["trainer"], launches = mesh_against_one_gpu(mesh, epoch, Path(tmp))
         log(f"[phase 16] (b) 1x1 NCCL mesh against one GPU {json.dumps(out['trainer'])}")
         out["bench"], bench_launches = bench_over_the_mesh()
+        chain_epoch, chain_val, counts = mesh_chain_epoch()
+        with tempfile.TemporaryDirectory() as tmp:
+            out["chained"], chained_launches = chained_mesh_against_unchained(mesh, chain_epoch, chain_val, counts,
+                                                                               Path(tmp))
+        del chain_epoch, chain_val
+        log(f"[phase 16] (d) chained 1x1 NCCL mesh against unchained and one GPU {json.dumps(out['chained'])}")
+        out["bench_chained"], bench_chained_launches = bench_chained_over_the_mesh()
     finally:
         distributed.shutdown()
-    launches = {k: launches[k] + bench_launches[k] for k in launches}
-    for result in out["bench"]:
-        log(f"[phase 16] (c) bench {json.dumps({k: v for k, v in result.items() if k != '_detail'})} "
-            f"detail {json.dumps(result['_detail'])}")
+    launches = {k: launches[k] + bench_launches[k] + chained_launches[k] + bench_chained_launches[k]
+                for k in launches}
+    for part, key in (("(c)", "bench"), ("(e)", "bench_chained")):
+        for result in out[key]:
+            log(f"[phase 16] {part} bench {json.dumps({k: v for k, v in result.items() if k != '_detail'})} "
+                f"detail {json.dumps(result['_detail'])}")
+            log(f"[phase 16] {part} mesh {result['_detail']['mesh']}: host seconds a timed epoch "
+                f"{json.dumps(host_split(result['_detail']))}")
     log(f"[phase 16] launches on the mesh path {json.dumps(launches)}")
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 16] took {out['seconds']:.1f} s")

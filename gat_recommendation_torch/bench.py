@@ -19,21 +19,25 @@ sessions/s; ``vs_baseline`` = ours / 74.3.
 ``--mesh DATAxMODEL`` runs the same epochs through the sharded steps of
 ``parallel/`` (one process a GPU over torch.distributed's nccl; the table
 row-sharded over 'model', each rank assembling its data coordinate's rows of
-every global batch; chain 1 only). A 1x1 mesh on one GPU, in a process group
-of one (``parallel/distributed.single_process_group`` when no launcher
-started it), measures what the mesh machinery costs against ``--chain 1``
-without it. A mesh of more ranks than the launch has raises.
+every global batch; with ``--chain`` > 1 a full group is one chained sharded
+step, CUDA graphs with the NCCL collectives inside, grouped as the Trainer
+groups them, ``train/trainer.py::transfer_chain_group``). A 1x1 mesh on one
+GPU, in a process group of one (``parallel/distributed.single_process_group``
+when no launcher started it), measures what the mesh machinery costs against
+the same ``--chain`` without it. A mesh of more ranks than the launch has raises.
 
 Timing: the slope over epochs. A warm-up window of 1 + N epochs (every CUDA
 graph of the timed windows is captured there), then 1 epoch and 1 + N
 epochs, each fenced once at each end by a synchronising readback; an epoch
-takes (t_long - t_short) / N. Prints one JSON line on stdout (metric names
+takes (t_long - t_short) / N. The detail's ``host`` says where each window's
+host seconds went (``HostAccount``). Prints one JSON line on stdout (metric names
 ``torch_`` + the JAX bench's), the detail and the nvidia-smi line on stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -47,10 +51,7 @@ from gat_recommendation_torch.data.batching import (
     collate,
     iterate_batches,
     make_grad_index,
-    make_grad_index_from_ids,
     prefetch_to_device,
-    stack_batches,
-    stack_grad_indices,
     to_device,
 )
 from gat_recommendation_torch.data.graph import build_co_event_graph
@@ -65,12 +66,13 @@ from gat_recommendation_torch.train.trainer import (
     make_chained_sparse_train_step,
     make_sparse_train_step,
     next_steps_block,
+    transfer_chain_group,
+    with_grad_index,
 )
 
 BASELINE_SESSIONS_PER_SEC = 120_436 / (27 * 60)  # reference: 27 min/epoch on an NVIDIA L4
 NUM_ITEMS = 466_865  # reference catalog size
 BATCH_SIZE = 512
-SUBCHAIN = 8  # a partial group runs as chains of this many steps, then single steps
 
 
 def corpus_columns(num_sessions: int, num_items: int = NUM_ITEMS, seed: int = 0):
@@ -104,8 +106,8 @@ def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = Fa
     """The optimized Graph Transformer at 256/256 (zero positional
     encodings), ``FusedEmbeddingAdamW(1e-3, weight_decay=1e-5)``, the dual
     loss; returns (model, optimizer, state, sparse step, chained sparse step).
-    With `mesh` the model holds its row shard and the step is the sharded
-    one (no chained step: None)."""
+    With `mesh` the model holds its row shard and the steps are the sharded
+    ones."""
     device = resolve_device(device)
     model = create_model("graph_transformer_optimized", num_items, embedding_dim=256, hidden_dim=256,
                          device=device, generator=torch.Generator(device).manual_seed(0))
@@ -121,7 +123,7 @@ def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = Fa
         parallel_mesh.shard_model(model, mesh)
         state = optimizer.init(model)
         return (model, optimizer, state, steps.make_sharded_sparse_train_step(model, loss_fn, optimizer, state, mesh),
-                None)
+                steps.make_chained_sharded_sparse_train_step(model, loss_fn, optimizer, state, mesh))
     state = optimizer.init(model)
     return (model, optimizer, state, make_sparse_train_step(model, loss_fn, optimizer, state),
             make_chained_sparse_train_step(model, loss_fn, optimizer, state))
@@ -144,6 +146,69 @@ def _device_name(device: torch.device) -> str:
 def _fence(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class HostAccount:
+    """Where a timed window's host seconds go: waiting for the prefetch
+    thread's next item, dispatching chained entries and single steps, the
+    closing fence, and the garbage collections that ran inside it (their
+    seconds are also inside the others'); the longest wait or call, and
+    what it was; each epoch's host seconds; the graphs captured inside the
+    window (`graphs`, a ``GraphCache``, or None)."""
+
+    def __init__(self, graphs=None):
+        self.graphs = graphs
+        self.seconds = dict.fromkeys(("wait", "chained", "single", "fence", "gc"), 0.0)
+        self.longest, self.longest_at = 0.0, None
+        self.epochs: list[float] = []
+        self.collections = 0
+
+    def __enter__(self):
+        self.captured = 0 if self.graphs is None else len(self.graphs.graphs)
+        self._gc_start = None
+        self._start = self._epoch_start = time.perf_counter()
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on_gc)
+        self.captured = (0 if self.graphs is None else len(self.graphs.graphs)) - self.captured
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_start = time.perf_counter()
+        elif self._gc_start is not None:
+            self.seconds["gc"] += time.perf_counter() - self._gc_start
+            self.collections += 1
+
+    def add(self, kind: str, since: float, at: str) -> None:
+        seconds = time.perf_counter() - since
+        self.seconds[kind] += seconds
+        if seconds > self.longest:
+            self.longest, self.longest_at = seconds, f"{kind} {at}"
+
+    def waited(self, items, epoch: int):
+        """`items`, with the wait for each one accounted."""
+        it, i = iter(items), 0
+        while True:
+            t = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.add("wait", t, f"epoch {epoch} item {i}")
+            i += 1
+            yield item
+
+    def epoch_ends(self) -> None:
+        now = time.perf_counter()
+        self.epochs.append(now - self._epoch_start)
+        self._epoch_start = now
+
+    def summary(self) -> dict:
+        return {**{f"{k}_s": v for k, v in self.seconds.items()}, "collections": self.collections,
+                "longest_s": self.longest, "longest": self.longest_at, "epoch_host_s": self.epochs,
+                "captured": self.captured}
 
 
 def touched_rows(ds: SessionDataset, chain: int, epochs: int = 2, workers: int = 0) -> dict:
@@ -175,11 +240,20 @@ def touched_rows(ds: SessionDataset, chain: int, epochs: int = 2, workers: int =
             "catch_up_terms_at_tail": float(np.mean(terms == TAIL_TERMS))}
 
 
-def device_busy(run) -> dict:
+def collect_garbage(device: torch.device) -> dict:
+    """A full collection of the garbage collector, now: the objects it found
+    in reference cycles, its seconds and the card memory it freed."""
+    allocated = torch.cuda.memory_allocated if device.type == "cuda" else (lambda: 0)
+    before, t = allocated(), time.perf_counter()
+    objects = gc.collect()
+    return {"objects": objects, "s": time.perf_counter() - t, "freed_bytes": before - allocated()}
+
+
+def device_busy(run, device: torch.device) -> dict:
     """One call of `run` (an epoch) under torch.profiler: the card's busy
     seconds (its operations' own time; user annotations, which span kernels
-    counted already and the gaps between them, left out) and the traced
-    call's wall seconds."""
+    counted already and the gaps between them, left out), the traced call's
+    wall seconds, and the collection of the trace's garbage."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,7 +262,11 @@ def device_busy(run) -> dict:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in rows) / 1e6 if rows else None
-    return {"device_busy_s": busy, "traced_epoch_s": wall}
+    # The trace's events refer to each other (parents and children), objects
+    # that only the garbage collector frees. Free them now, so that their
+    # collection lands in no later timed window.
+    del prof, rows
+    return {"device_busy_s": busy, "traced_epoch_s": wall, "trace_collection": collect_garbage(device)}
 
 
 def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, bf16_moments=None,
@@ -197,78 +275,83 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
     """Sessions/s over whole epochs of the host pipeline and the train step.
     `profile` adds one traced epoch after the timed windows (the device's
     idle share over an epoch) and the touched-row statistics. `mesh_shape`
-    (data, model) trains through the sharded steps (chain 1)."""
+    (data, model) trains through the sharded steps."""
     device = resolve_device(device)
     mesh, feed = None, {}
     if mesh_shape is not None:
-        if chain > 1:
-            raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b); pass --chain 1")
         from gat_recommendation_torch.parallel.mesh import coordinates
 
         mesh = bench_mesh(mesh_shape, device)
         feed = dict(process_index=coordinates(mesh)[0], process_count=mesh_shape[0],
                     with_global_ids=mesh_shape[0] > 1)
+    # What the caller left for the garbage collector is collected here, in
+    # the set-up, not inside a timed window.
+    setup_collection = collect_garbage(device)
     t0 = time.perf_counter()
     ds, stats = make_corpus(num_sessions, num_items)
     setup_s = time.perf_counter() - t0
     model, optimizer, state, step, chained_step = make_training(num_items, bf16_moments, lazy, device, mesh)
 
-    def transfer(item):
-        hb, meta = item if isinstance(item, tuple) else (item, None)
-        gidx = make_grad_index(hb) if meta is None or meta.ids is None else make_grad_index_from_ids(meta.ids)
-        return to_device((hb, gidx), device)
+    n_data = 1 if mesh_shape is None else mesh_shape[0]
 
-    def stack_group(items):
-        gidxs = stack_grad_indices([make_grad_index(b) for b in items])
-        return ("chained", *to_device((stack_batches(items), gidxs), device))
+    def transfer(item):
+        return to_device(with_grad_index(item, n_data), device)
 
     def transfer_group(items):
-        if len(items) == chain:
-            return [stack_group(items)]
-        out, i = [], 0
-        while len(items) - i >= SUBCHAIN and chain > SUBCHAIN:
-            out.append(stack_group(items[i:i + SUBCHAIN]))
-            i += SUBCHAIN
-        out.extend(transfer(b) for b in items[i:])
-        return out
+        return transfer_chain_group(items, chain, device, n_data)
 
     nsteps = 0
+    graphs = getattr(chained_step, "graphs", None)  # the chained step's GraphCache on the card
+    hosts = {}
 
-    def run_epochs(n_epochs: int, seed0: int) -> float:
+    def run_epochs(n_epochs: int, seed0: int, window: str) -> float:
         nonlocal nsteps
         _fence(device)
+        acct = HostAccount(graphs)
         t0 = time.perf_counter()
         loss = None
-        for e in range(n_epochs):
-            raw = iterate_batches(ds, BATCH_SIZE, shuffle=True, seed=seed0 + e, engine="native", workers=workers,
-                                  **feed)
-            if chain > 1:
-                for entries in prefetch_to_device(chain_iterator(raw, chain), size=4, transfer=transfer_group,
-                                                  transfer_workers=transfer_workers, device=device):
-                    for entry in entries:
-                        if isinstance(entry[0], str):  # ("chained", batches, gidxs)
-                            _, sb, sg = entry
-                            seeds = [mix_seed(0, 0, nsteps + i) for i in range(sg.uid.shape[0])]
-                            loss = chained_step(sb, sg, next_steps_block(model, optimizer, state, seeds, device))[-1]
-                            nsteps += len(seeds)
-                        else:
-                            loss = step(entry, mix_seed(0, 0, nsteps))
-                            nsteps += 1
-            else:
-                for db in prefetch_to_device(raw, size=4, transfer=transfer, transfer_workers=transfer_workers,
-                                             device=device):
-                    loss = step(db, mix_seed(0, 0, nsteps))
-                    nsteps += 1
-        _ = float(loss)  # the one fence: every step of the window has run
+        with acct:
+            for e in range(n_epochs):
+                raw = iterate_batches(ds, BATCH_SIZE, shuffle=True, seed=seed0 + e, engine="native",
+                                      workers=workers, **feed)
+                if chain > 1:
+                    groups = prefetch_to_device(chain_iterator(raw, chain), size=4, transfer=transfer_group,
+                                                transfer_workers=transfer_workers, device=device)
+                    for entries in acct.waited(groups, e):
+                        for entry in entries:
+                            t = time.perf_counter()
+                            if isinstance(entry[0], str):  # ("chained", batches, gidxs)
+                                _, sb, sg = entry
+                                seeds = [mix_seed(0, 0, nsteps + i) for i in range(sg.uid.shape[0])]
+                                loss = chained_step(sb, sg,
+                                                    next_steps_block(model, optimizer, state, seeds, device))[-1]
+                                acct.add("chained", t, f"epoch {e} step {nsteps}")
+                                nsteps += len(seeds)
+                            else:
+                                loss = step(entry, mix_seed(0, 0, nsteps))
+                                acct.add("single", t, f"epoch {e} step {nsteps}")
+                                nsteps += 1
+                else:
+                    for db in acct.waited(prefetch_to_device(raw, size=4, transfer=transfer,
+                                                             transfer_workers=transfer_workers, device=device), e):
+                        t = time.perf_counter()
+                        loss = step(db, mix_seed(0, 0, nsteps))
+                        acct.add("single", t, f"epoch {e} step {nsteps}")
+                        nsteps += 1
+                acct.epoch_ends()
+            t = time.perf_counter()
+            _ = float(loss)  # the one fence: every step of the window has run
+            acct.add("fence", t, "end")
+        hosts[window] = acct.summary()
         return time.perf_counter() - t0
 
     # The warm-up runs the timed windows' seeds, so every (bucket, U) graph
     # they replay is captured before the clock runs.
-    t_warm = run_epochs(1 + epochs_long, seed0=0)
+    t_warm = run_epochs(1 + epochs_long, seed0=0, window="warm")
     steps_before = nsteps
-    t_short = run_epochs(1, seed0=0)
+    t_short = run_epochs(1, seed0=0, window="short")
     steps_per_epoch = nsteps - steps_before
-    t_long = run_epochs(1 + epochs_long, seed0=0)
+    t_long = run_epochs(1 + epochs_long, seed0=0, window="long")
     per_epoch = (t_long - t_short) / epochs_long
     sessions_per_sec = len(ds) / per_epoch
     detail = {
@@ -288,11 +371,14 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
         "corpus_setup_s": setup_s,
         "device": _device_name(device),
         "mesh": None if mesh_shape is None else f"{mesh_shape[0]}x{mesh_shape[1]}",
+        "host": hosts,
+        "setup_collection": setup_collection,
     }
     if profile:
-        traced = device_busy(lambda: run_epochs(1, seed0=0))
+        traced = device_busy(lambda: run_epochs(1, seed0=0, window="traced"), device)
         busy = traced["device_busy_s"]
         detail["traced_epoch_s"] = traced["traced_epoch_s"]
+        detail["trace_collection"] = traced["trace_collection"]
         detail["device_busy_s"] = "not measured" if busy is None else busy
         # Against the unprofiled epoch: the trace's own cost is on the host.
         detail["device_idle_share"] = "not measured" if busy is None else 1.0 - busy / per_epoch
@@ -386,7 +472,7 @@ def main(argv=None) -> None:
                    help="bf16 moment storage with stochastic rounding; a value narrows one buffer")
     p.add_argument("--mesh", default=None,
                    help="DATAxMODEL (e.g. 1x1, 2x4): the sharded steps over a mesh, one process a GPU "
-                        "(torchrun); 1x1 measures the mesh machinery on one GPU; needs --chain 1")
+                        "(torchrun); 1x1 measures the mesh machinery on one GPU")
     p.add_argument("--lazy", action=argparse.BooleanOptionalAction, default=True,
                    help="lazy catch-up AdamW (the default); --no-lazy the eager sparse AdamW sweep")
     p.add_argument("--transfer-workers", type=int, default=3, help="host-to-device transfer threads")

@@ -151,7 +151,9 @@ def available() -> bool:
 
 
 def _ptr(a: np.ndarray, ctype):
-    return a.ctypes.data_as(ctypes.POINTER(ctype))
+    # Not ``a.ctypes.data_as``: the pointer it casts refers to itself, so
+    # every call would leave a reference cycle for the garbage collector.
+    return ctypes.pointer(ctype.from_address(a.ctypes.data))
 
 
 def build_csr(item_i, item_j, num_items: int) -> tuple[np.ndarray, np.ndarray]:

@@ -6,7 +6,8 @@ shaped like it) row-sharded over 'model', everything else replicated. GSPMD
 inserted the JAX package's collectives; here they are written out
 (``parallel/steps.py``, ``ops/shard.py``): gradient sums over 'data', table
 rows exchanged over 'model', BatchNorm statistics and the loss's sample count
-summed over 'data', and a two-phase top-k (``parallel/topk.py``). The table
+summed over 'data', and a two-phase top-k (``parallel/topk.py``); chained
+steps replay CUDA graphs with those collectives inside. The table
 update of the eager sparse step is B1, kernel 3 on each row shard
 (``ops/sparse_adamw.py::sharded_sparse_adamw``). The JAX package's
 ``parallel.__all__``.

@@ -77,6 +77,13 @@ def batch_sharding(mesh) -> Sharding:
     return Sharding(mesh, ("data",))
 
 
+def chained_batch_sharding(mesh) -> Sharding:
+    """A chain group's stacked batches [C, B, ...]: the chain axis whole on
+    every rank (each slot is a step of the whole mesh), the batch axis split
+    over 'data'."""
+    return Sharding(mesh, (None, "data"))
+
+
 def is_table(name: str) -> bool:
     """A table-shaped tensor, by its state-dict or optimizer-state name."""
     return name.rsplit(".", 1)[-1] in TABLE_KEYS

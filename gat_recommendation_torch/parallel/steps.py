@@ -27,8 +27,12 @@ sharded lookup (the gradient lands on the owner's rows) and runs kernel 4 on
 each shard. The eval step is the eval forward and the two-phase top-k
 (``parallel/topk.py``). Every step returns the global batch's loss.
 
-Chained steps (CUDA graphs) are not available under a mesh (ROADMAP A8b:
-NCCL collectives inside a graph capture).
+The chained sparse step runs C such steps over a chain group's stacked
+batches and GradIndexes: on the CPU a loop over the slots, on the card CUDA
+graphs of one step (``train/trainer.py::chain_steps``) with the step's NCCL
+collectives captured inside them, replayed C times. Slot i is the unchained
+step with the i-th row of the step block, so a chained run equals the
+unchained one bit for bit.
 """
 
 from __future__ import annotations
@@ -49,13 +53,15 @@ from gat_recommendation_torch.parallel.mesh import (
 )
 from gat_recommendation_torch.parallel.topk import sharded_topk
 from gat_recommendation_torch.train.optimizers import EMBEDDING_KEY, rest_parameters
-from gat_recommendation_torch.train.trainer import next_steps_block, sorted_segment_sum
+from gat_recommendation_torch.train.trainer import chain_steps, next_steps_block, sorted_segment_sum
 
 __all__ = [
+    "make_chained_sharded_sparse_train_step",
     "make_sharded_sparse_train_step",
     "make_sharded_train_step",
     "make_sharded_eval_step",
     "shard_batch",
+    "shard_chained_batch",
     "shard_params",
 ]
 
@@ -68,15 +74,27 @@ def active_shard(model: nn.Module, mesh, local_batch: int) -> shard.Shard:
                        model_group=mesh.get_group("model"), row_offset=getattr(model, "table_offset", 0))
 
 
-def shard_batch(batch: SessionBatch, mesh):
-    """This rank's rows of a whole host batch on its device: sessions
-    ``[d * b, (d + 1) * b)`` of the batch's B, b = B / n_data."""
+def _data_rows(B: int, mesh) -> slice:
+    """This rank's sessions ``[d * b, (d + 1) * b)`` of a global batch of B, b = B / n_data."""
     n_data = axis_size(mesh, "data")
-    if batch.batch_size % n_data:
-        raise ValueError(f"batch of {batch.batch_size} does not split over {n_data} data ranks")
-    b = batch.batch_size // n_data
+    if B % n_data:
+        raise ValueError(f"batch of {B} does not split over {n_data} data ranks")
+    b = B // n_data
     d, _ = coordinates(mesh)
-    return to_device(batch.map(lambda t: t[d * b:(d + 1) * b]), device_of(mesh))
+    return slice(d * b, (d + 1) * b)
+
+
+def shard_batch(batch: SessionBatch, mesh):
+    """This rank's rows of a whole host batch on its device (``batch_sharding``)."""
+    rows = _data_rows(batch.batch_size, mesh)
+    return to_device(batch.map(lambda t: t[rows]), device_of(mesh))
+
+
+def shard_chained_batch(stacked: SessionBatch, mesh):
+    """This rank's rows of every slot of a chain group's stacked host batches
+    [C, B, ...] on its device, the chain axis whole (``chained_batch_sharding``)."""
+    rows = _data_rows(stacked.node_ids.shape[1], mesh)
+    return to_device(stacked.map(lambda t: t[:, rows]), device_of(mesh))
 
 
 def _local_slots(b: int, N: int, K: int, mesh, device) -> torch.Tensor:
@@ -120,12 +138,13 @@ def _with_index(batch, device):
     return batch, to_device(make_grad_index(batch.to("cpu")), device)
 
 
-def make_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict, mesh) -> Callable:
-    """The sparse step over the mesh: ``step(item, seed) -> global loss``.
-    `item` is (this rank's batch, the global batch's GradIndex) on the
-    rank's device, or a bare batch on a mesh of one data rank. Eager
-    optimizers update the table with B1 (``update_sparse(mesh=)``); lazy
-    ones through the row kernels at the shard's offset."""
+def _sharded_sparse_body(model: nn.Module, loss_fn, optimizer, opt_state: dict, mesh) -> Callable:
+    """``body(batch, gidx, row) -> global loss``: one sparse step over the mesh
+    on device tensors, `batch` this rank's sessions, `gidx` the global batch's
+    GradIndex, `row` the step's row of the step block. Shared by the single
+    step and the chained one, whose graphs capture it with its collectives.
+    The slot positions of a shape are built at its first call (the warm-up,
+    on the card), so a graph reads a tensor that stays alive."""
     if not hasattr(optimizer, "update_sparse"):
         raise TypeError("optimizer must support update_sparse")
     lazy = getattr(optimizer, "lazy", False)
@@ -174,6 +193,17 @@ def make_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
             optimizer.update_sparse(g_rest, gidx.uid, summed, opt_state, model, step=row, mesh=mesh)
         return _global_loss(loss, mesh)
 
+    return body
+
+
+def make_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict, mesh) -> Callable:
+    """The sparse step over the mesh: ``step(item, seed) -> global loss``.
+    `item` is (this rank's batch, the global batch's GradIndex) on the
+    rank's device, or a bare batch on a mesh of one data rank. Eager
+    optimizers update the table with B1 (``update_sparse(mesh=)``); lazy
+    ones through the row kernels at the shard's offset."""
+    body = _sharded_sparse_body(model, loss_fn, optimizer, opt_state, mesh)
+
     def train_step(item, seed: int = 0) -> torch.Tensor:
         if not isinstance(item, tuple) and axis_size(mesh, "data") > 1:
             raise ValueError("with several data ranks the step needs the global batch's GradIndex")
@@ -182,6 +212,29 @@ def make_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
         return body(batch, gidx, next_steps_block(model, optimizer, opt_state, [seed], device)[0])
 
     return train_step
+
+
+def make_chained_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict,
+                                           mesh) -> Callable:
+    """C sparse steps over the mesh in one call: ``chained(batches, gidxs,
+    block) -> global losses [C]``, the contract of the single-GPU
+    ``make_chained_sparse_train_step``. `batches` are this rank's rows of the
+    group's stacked batches (``shard_chained_batch``), `gidxs` the stacked
+    GradIndexes of the global batches (``stack_grad_indices`` over
+    ``make_grad_index_from_ids``), the same on every rank; slot i is the
+    unchained sharded step with ``block[i]``'s seed.
+
+    On the CPU (gloo) a loop over the slots. On the card one CUDA graph of a
+    sharded step per (node bucket, U), its NCCL collectives captured inside
+    (the uid and PE rows over 'model'; BatchNorm statistics and their
+    gradients, the loss's counts, the summed rows, the other gradients and
+    the loss over 'data'), replayed C times. The warm-up before each capture
+    runs every collective of the step for real, so each group's communicator
+    exists before the capture begins. Every rank must form the same groups:
+    a rank that replays a graph its peers do not waits in NCCL until the
+    group's timeout."""
+    body = _sharded_sparse_body(model, loss_fn, optimizer, opt_state, mesh)
+    return chain_steps(body, model, opt_state)
 
 
 def make_sharded_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict, mesh) -> Callable:

@@ -20,7 +20,7 @@ google-cloud-storage is installed.
 Over a mesh (``parallel/``): one process a GPU, launched by torchrun (or
 with the JAX script's ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``)::
 
-    torchrun --nproc-per-node=N -m gat_recommendation_torch.scripts.train.train_baseline --mesh --n-model M --chain 1
+    torchrun --nproc-per-node=N -m gat_recommendation_torch.scripts.train.train_baseline --mesh --n-model M
 
 ``--distributed auto`` joins the launch's process group (nccl on cuda, gloo
 with ``--device cpu``; a detected launch that fails to join raises);
@@ -28,9 +28,9 @@ with ``--device cpu``; a detected launch that fails to join raises);
 mesh is ``(processes / M) x M``, the table row-sharded over M, and
 ``--batch-size`` is the global batch, each process assembling its data rank's
 rows. A single process with ``--mesh`` trains on a 1x1 mesh in a group of
-one. A mesh larger than the processes or the GPUs raises with both counts;
-chained steps under a mesh are not ported (ROADMAP A8b: pass ``--chain 1``).
-Rank 0 writes the outputs.
+one. A mesh larger than the processes or the GPUs raises with both counts.
+``--chain`` (32 by default) chains the sharded steps as on one GPU: on the
+card CUDA graphs with the NCCL collectives inside. Rank 0 writes the outputs.
 
 ``parse_args``, ``build`` (datasets, model, optimizer, Trainer) and ``run``
 stand apart so that a caller can set the weights between them; ``main``
@@ -138,8 +138,6 @@ def make_mesh_for(args: argparse.Namespace, device: torch.device):
             raise ValueError(f"{distributed.process_count()} processes were launched and --no-mesh "
                              "trains on one: launch one process")
         return None
-    if args.chain > 1:
-        raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b); pass --chain 1")
     if not launched:
         distributed.single_process_group(device)
     from gat_recommendation_torch.parallel.mesh import make_mesh

@@ -20,6 +20,14 @@ which every host-to-device transfer takes for its CUDA calls, so the prefetch
 thread of an epoch (``data/batching.prefetch_to_device``) pauses while a graph
 is recorded.
 
+A step of a mesh issues NCCL collectives, and the graph records them too: a
+replay runs them on the process group's communicators, which the warm-up
+created (a communicator cannot be created inside a capture). Captures run in
+the "thread_local" capture mode: the process group's watchdog thread polls
+the events of earlier collectives, a call that the "global" mode forbids on
+every thread while a capture runs; ``capture_lock`` is what keeps the other
+threads' CUDA calls out of a capture.
+
 The graphs of one cache share one memory pool. That is safe here because a
 cache's graphs never run at once and every graph's output is copied out (or
 read) before another graph of the cache replays.
@@ -53,6 +61,7 @@ COUNTERS = (
     (score_chunkmax.score_chunkmax, "launches"),
     (score_chunkmax.score_chunkmax, "tile_launches"),
     (sparse_adamw.sparse_adamw, "launches"),
+    (sparse_adamw.sharded_sparse_adamw, "launches"),
     (embedding_adamw.embedding_adamw, "launches"),
     (lazy_adamw.gather_catch_up, "launches"),
     (lazy_adamw.touched_update_scatter, "launches"),
@@ -132,8 +141,9 @@ class GraphCache:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         # capture_lock: no transfer on another thread makes a CUDA call while
-        # the capture records (the default "global" capture mode forbids it).
-        with capture_lock, torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        # the capture records.
+        with capture_lock, torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                            capture_error_mode="thread_local"):
             output = self.fn(*inputs)
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
         launches = [after - before for before, after in zip(counters, read_counters())]

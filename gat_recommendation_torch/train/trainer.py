@@ -50,6 +50,11 @@ training items are (local batch, ``GlobalBatchMeta``) pairs whose meta's ids
 give the global GradIndex, evaluation runs the two-phase top-k and gathers
 the top-k ids over the data group (the metas carry the global targets and
 masks), so every rank computes the same metrics and stops at the same epoch.
+With ``chain > 1`` the groups are those of the single-GPU Trainer
+(``transfer_chain_group``), each chained group one chained sharded step
+(``parallel/steps.py::make_chained_sharded_sparse_train_step``), its
+GradIndexes built from the metas' global ids. Evaluation under a mesh stays
+unchained, as in the JAX package.
 Rank 0 alone writes files; checkpoints gather the table's rows to it and are
 the single-GPU format, which any mesh restores by cutting its rows.
 """
@@ -245,16 +250,23 @@ def make_chained_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
     C steps' rows of the step block (``next_steps_block``): slot i is the
     step ``make_sparse_train_step`` would take with ``block[i]``'s seed, so
     chained and unchained training are the same program. The losses stay on
-    the device.
+    the device. ``chain_steps`` runs the slots.
+    """
+    return chain_steps(_sparse_step_body(model, loss_fn, optimizer, opt_state), model, opt_state)
+
+
+def chain_steps(body: Callable, model: nn.Module, opt_state: dict) -> Callable:
+    """``chained(batches, gidxs, block) -> losses [C]`` from a one-step
+    ``body(batch, gidx, row) -> loss`` that updates `model` and `opt_state`
+    in place.
 
     On the CPU a loop over the slots. On the card one CUDA graph of a single
     step per (node bucket, unique-row bucket), replayed C times, slot i
-    copied into its input buffers before the i-th replay (``train/graphs.py``):
-    the graphs do not depend on C, so sub-chains and full groups replay the
-    same graph, and a capture costs one warm-up step and one recorded one.
+    copied into its input buffers before the i-th replay (``train/graphs.py``;
+    a body's NCCL collectives are captured with it): the graphs do not depend on C, so
+    sub-chains and full groups replay the same graph, and a capture costs one
+    warm-up step and one recorded one. The host's count goes on by C.
     """
-    body = _sparse_step_body(model, loss_fn, optimizer, opt_state)
-
     if model.get_parameter(EMBEDDING_KEY).device.type != "cuda":
         def run_slots(batches: SessionBatch, gidxs: GradIndex, block: torch.Tensor) -> torch.Tensor:
             return torch.stack([body(_slot(batches, i), _slot(gidxs, i), block[i])
@@ -280,6 +292,52 @@ def make_chained_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
 
     chained.graphs = cache
     return chained
+
+
+# A partial group at a bucket boundary runs as chains of this many steps
+# before single steps, as in the JAX package; they replay the same graphs.
+SUBCHAIN = 8
+
+
+def with_grad_index(item, n_data: int = 1) -> tuple:
+    """(host batch, GradIndex). A (local batch, GlobalBatchMeta) item of a
+    mesh gives the global batch's GradIndex from the meta's ids; else the
+    batch's own, which must then be the global batch (one data rank)."""
+    batch, meta = item if isinstance(item, tuple) else (item, None)
+    if meta is not None and meta.ids is not None:
+        return batch, make_grad_index_from_ids(meta.ids)
+    if n_data > 1:
+        raise ValueError("with several data ranks the sparse step needs the global ids "
+                         "(iterate_batches(..., with_global_ids=True))")
+    return batch, make_grad_index(batch)
+
+
+def transfer_chain_group(items: list, chain: int, device, n_data: int = 1) -> list:
+    """One ``chain_iterator`` group of sparse-step items on the device, as
+    the entries a chained epoch runs: a full group is one ("chained", stacked
+    batches, stacked GradIndexes) entry; a partial one splits into SUBCHAIN
+    chains (when `chain` > SUBCHAIN) and single (batch, GradIndex) entries.
+    The split depends on the group's length alone, so every rank of a mesh
+    forms the same entries. A group that mixes (local batch, GlobalBatchMeta)
+    items with plain batches raises: its indexes would come from local
+    batches."""
+    pairs = [isinstance(it, tuple) for it in items]
+    if any(pairs) and not all(pairs):
+        raise ValueError("a chain group mixes (batch, GlobalBatchMeta) items with plain batches; "
+                         "the iterator must yield one kind")
+
+    def stacked(group: list) -> tuple:
+        batches, gidxs = zip(*(with_grad_index(it, n_data) for it in group))
+        return ("chained", *to_device((stack_batches(list(batches)), stack_grad_indices(list(gidxs))), device))
+
+    if len(items) == chain:
+        return [stacked(items)]
+    out, i = [], 0
+    while len(items) - i >= SUBCHAIN and chain > SUBCHAIN:
+        out.append(stacked(items[i:i + SUBCHAIN]))
+        i += SUBCHAIN
+    out.extend(to_device(with_grad_index(it, n_data), device) for it in items[i:])
+    return out
 
 
 def make_eval_step(model: nn.Module, k: int, topk_method: str = "auto") -> Callable:
@@ -353,7 +411,7 @@ class Trainer:
     ('data', 'model') ``DeviceMesh`` (``parallel/mesh.py::make_mesh``) to
     train over; `train_batches` and `val_batches` then yield this rank's rows
     (``iterate_batches(process_index=data coordinate, process_count=n_data,
-    with_global_ids=...)``), and `chain` must be 1.
+    with_global_ids=...)``).
     """
 
     def __init__(
@@ -386,9 +444,6 @@ class Trainer:
         if mesh is not None:
             from gat_recommendation_torch.parallel.mesh import device_of, shard_model
 
-            if chain > 1:
-                raise NotImplementedError("chained steps under a mesh are not ported (ROADMAP A8b: NCCL "
-                                          "collectives inside a CUDA graph capture); pass chain=1")
             if device_of(mesh) != table.device:
                 raise ValueError(f"the mesh's device is {device_of(mesh)}, the model's {table.device}")
             shard_model(model, mesh)
@@ -434,7 +489,9 @@ class Trainer:
 
             self._eval_step = make_sharded_eval_step_v2(self.model, max(self.k_values), mesh)
         # Its graphs hold only the model's tensors, which keep their identity.
-        self._chained_eval = make_chained_eval_step(self.model, max(self.k_values)) if self.chain > 1 else None
+        # Under a mesh evaluation stays unchained, as in the JAX package.
+        self._chained_eval = (make_chained_eval_step(self.model, max(self.k_values))
+                              if self.chain > 1 and mesh is None else None)
 
     def init_state(self, reset_parameters: bool = True, opt_state: dict | None = None) -> dict:
         """Fresh optimizer state (or `opt_state`, to go on from it), and, unless
@@ -445,36 +502,28 @@ class Trainer:
         if reset_parameters:
             self.model.reset_parameters(torch.Generator(self.device).manual_seed(self.seed))
         self.opt_state = self.optimizer.init(self.model) if opt_state is None else opt_state
-        if self.mesh is not None:
+        args = (self.model, self.loss_fn, self.optimizer, self.opt_state)
+        if self.mesh is None:
+            make, chained = make_sparse_train_step, make_chained_sparse_train_step
+            if not self.sparse_embedding_grads:
+                make = make_train_step
+        else:
             from gat_recommendation_torch.parallel import steps
 
-            sharded = steps.make_sharded_sparse_train_step if self.sparse_embedding_grads else \
-                steps.make_sharded_train_step
-            self._train_step = sharded(self.model, self.loss_fn, self.optimizer, self.opt_state, self.mesh)
-            return self.opt_state
-        make = make_sparse_train_step if self.sparse_embedding_grads else make_train_step
-        self._train_step = make(self.model, self.loss_fn, self.optimizer, self.opt_state)
-        if self.chain > 1:
-            self._chained_step = make_chained_sparse_train_step(
-                self.model, self.loss_fn, self.optimizer, self.opt_state)
+            make, chained = steps.make_sharded_sparse_train_step, steps.make_chained_sharded_sparse_train_step
+            if not self.sparse_embedding_grads:
+                make = steps.make_sharded_train_step
+            args = (*args, self.mesh)
+        self._train_step = make(*args)
+        self._chained_step = chained(*args) if self.chain > 1 else None
         return self.opt_state
 
     def _transfer(self, item):
         """One host batch to the device; for the sparse step the GradIndex is
-        built on the host (numpy argsort) beside it. A (local batch,
-        GlobalBatchMeta) item of a mesh gives the global batch's GradIndex
-        from the meta's ids."""
-        batch, meta = item if isinstance(item, tuple) else (item, None)
+        built on the host (numpy argsort) beside it."""
         if not self.sparse_embedding_grads:
-            return to_device(batch, self.device)
-        if meta is not None and meta.ids is not None:
-            gidx = make_grad_index_from_ids(meta.ids)
-        elif self.mesh is not None and self._n_data > 1:
-            raise ValueError("with several data ranks the sparse step needs the global ids "
-                             "(iterate_batches(..., with_global_ids=True))")
-        else:
-            gidx = make_grad_index(batch)
-        return to_device((batch, gidx), self.device)
+            return to_device(item[0] if isinstance(item, tuple) else item, self.device)
+        return to_device(with_grad_index(item, self._n_data), self.device)
 
     @property
     def _n_data(self) -> int:
@@ -492,27 +541,6 @@ class Trainer:
         if self.mesh is not None:
             torch.distributed.barrier()
 
-    # A partial group at a bucket boundary runs as chains of this many steps
-    # before single steps, as in the JAX package; they replay the same graphs.
-    SUBCHAIN = 8
-
-    def _transfer_chain(self, batches: list) -> list:
-        """One ``chain_iterator`` group on the device: a full group is one
-        ("chained", batches, gidxs) entry; a partial one splits into SUBCHAIN
-        chains and single transferred steps."""
-        if len(batches) == self.chain:
-            return [self._stack_group(batches)]
-        out, i = [], 0
-        while len(batches) - i >= self.SUBCHAIN and self.chain > self.SUBCHAIN:
-            out.append(self._stack_group(batches[i:i + self.SUBCHAIN]))
-            i += self.SUBCHAIN
-        out.extend(self._transfer(b) for b in batches[i:])
-        return out
-
-    def _stack_group(self, batches: list) -> tuple:
-        gidxs = stack_grad_indices([make_grad_index(b) for b in batches])
-        return ("chained", *to_device((stack_batches(batches), gidxs), self.device))
-
     def step_seed(self, step: int) -> int:
         return mix_seed(self.seed, self.current_epoch, step)
 
@@ -527,9 +555,11 @@ class Trainer:
             self.init_state(reset_parameters=False)
         losses = []
         if self.chain > 1:
+            chain, device, n_data = self.chain, self.device, self._n_data
             groups = prefetch_to_device(
-                chain_iterator(self.train_batches(self.current_epoch), self.chain), size=2,
-                transfer=self._transfer_chain, transfer_workers=self.transfer_workers, device=self.device)
+                chain_iterator(self.train_batches(self.current_epoch), chain), size=2,
+                transfer=lambda items: transfer_chain_group(items, chain, device, n_data),
+                transfer_workers=self.transfer_workers, device=device)
             step = 0
             for entries in groups:
                 for entry in entries:
@@ -564,7 +594,7 @@ class Trainer:
         # the batches', so predictions align with targets. Under a mesh an
         # item is (local batch, GlobalBatchMeta): the top-k ids of the data
         # ranks are gathered, and the meta holds the global targets and mask.
-        groups = chain_iterator(self.val_batches(), self.chain) if self.chain > 1 else (
+        groups = chain_iterator(self.val_batches(), self.chain) if self._chained_eval is not None else (
             [batch] for batch in self.val_batches())
         for group in groups:
             if len(group) == self.chain > 1:

@@ -6,7 +6,9 @@ port's pandas-free builder: the same sessions, the same edges, and batches
 equal bit for bit to those of the JAX package's C++ engine. ``main_e2e`` and
 ``main_device`` run end to end with ``device="cpu"`` over a 5,000-item
 catalog and print a JSON line with the JAX bench's keys under ``torch_``
-metric names, the device named. The latency bench's ``measure`` gives
+metric names, the device named; each timed window's host account says
+where its seconds went, and ``scripts/bench_windows.py`` runs the bench in
+turns and flags stalled epochs. The latency bench's ``measure`` gives
 p50 <= p95 <= p99 over a CPU Recommender.
 """
 
@@ -100,9 +102,53 @@ def test_main_e2e_runs_and_prints_one_json_line(capsys, chain, workers, transfer
     assert detail["transfer_workers"] == transfer_workers and detail["engine"] == "native"
     assert detail["steps_per_epoch"] >= 2 and detail["epoch_s"] == detail["t_long"] - detail["t_short"]
     assert detail["device_idle_share"] == "not measured"  # a CPU run measures no device
+    assert set(detail["trace_collection"]) == {"objects", "s", "freed_bytes"}  # the trace's garbage, collected
     rows = detail["touched_rows"]
     assert rows["steps"] == 2 * detail["steps_per_epoch"] and 0 < rows["unique_rows_mean"] <= rows["unique_rows_max"]
     assert 0 <= rows["catch_up_terms_at_tail"] <= 1 and rows["catch_up_terms_mean"] >= 0
+
+
+def test_each_window_accounts_where_its_host_seconds_went():
+    """The detail's ``host``: for the warm-up, short and long windows, the
+    host seconds of each epoch (adding up to at most the window), of the
+    waits on the prefetch thread, the chained and the single steps and the
+    fence (together at most the window, and most of it on the CPU), the
+    longest of those and the collections that ran inside; no graph is
+    captured on the CPU. The set-up's full collection is reported."""
+    result = bench.main_e2e(1200, 0, 1, 3, lazy=True, transfer_workers=1, num_items=ITEMS, device="cpu")
+    detail = result["_detail"]
+    assert set(detail["host"]) == {"warm", "short", "long"}
+    for window, epochs in (("warm", 2), ("short", 1), ("long", 2)):
+        acct, wall = detail["host"][window], detail[f"t_{window}"]
+        assert len(acct["epoch_host_s"]) == epochs and sum(acct["epoch_host_s"]) <= wall
+        spent = acct["wait_s"] + acct["chained_s"] + acct["single_s"] + acct["fence_s"]
+        assert 0.5 * wall < spent <= wall, window
+        assert acct["chained_s"] > 0 and acct["single_s"] > 0  # a group of 3, then a single step
+        assert 0 < acct["longest_s"] <= spent and acct["longest"].split()[0] in ("wait", "chained", "single", "fence")
+        assert acct["captured"] == 0 and acct["collections"] >= 0 and acct["gc_s"] >= 0
+    # The set-up's collection: what the caller left; no card memory here.
+    assert set(detail["setup_collection"]) == {"objects", "s", "freed_bytes"}
+    assert detail["setup_collection"]["freed_bytes"] == 0 and detail["setup_collection"]["objects"] >= 0
+
+
+def test_bench_windows_runs_in_turns_and_finds_stalls(tmp_path, capsys):
+    """``scripts/bench_windows.py`` on the CPU: a mesh run and a plain run,
+    a JSON line each with both timed windows' host accounts, every result in
+    ``--out``; an epoch over twice the median is a stall."""
+    from gat_recommendation_torch.scripts import bench_windows
+
+    out = tmp_path / "windows.jsonl"
+    summary = bench_windows.main(["--rounds", "1", "--chain", "2", "--sessions", "300", "--epochs", "1",
+                                  "--num-items", str(ITEMS), "--device", "cpu", "--out", str(out)])
+    assert summary["runs"] == 2 and [line["mesh"] for line in summary["lines"]] == ["1x1", None]
+    assert all(set(line["host"]) == {"short", "long"} for line in summary["lines"])
+    assert [json.loads(line)["_detail"]["mesh"] for line in out.read_text().splitlines()] == ["1x1", None]
+    printed = capsys.readouterr().out.splitlines()
+    assert json.loads(printed[-1]) == {"runs": 2, "stalled": summary["stalled"], "not_positive": 0}  # no card: no smi line
+    assert not torch.distributed.is_initialized()
+    steady = {"host": {"short": {"epoch_host_s": [1.0]}, "long": {"epoch_host_s": [1.1, 0.9]}}}
+    stalled = {"host": {"short": {"epoch_host_s": [2.5]}, "long": {"epoch_host_s": [1.0, 1.0]}}}
+    assert bench_windows.stalled_epochs(steady) == [] and bench_windows.stalled_epochs(stalled) == [2.5]
 
 
 def test_main_device_runs_and_prints_one_json_line(capsys):
@@ -111,10 +157,36 @@ def test_main_device_runs_and_prints_one_json_line(capsys):
     _check_line(capsys.readouterr().out, "torch_train_sessions_per_sec_per_chip_eager")
 
 
-def test_mesh_is_not_ported():
-    """What of the mesh is not ported: chained steps under it (ROADMAP A8b)."""
-    with pytest.raises(NotImplementedError, match="A8b"):
-        bench.main_e2e(100, 0, 1, 32, lazy=True, num_items=ITEMS, device="cpu", mesh_shape=(1, 1))
+def test_bench_over_a_1x1_mesh_runs_chained_steps(capsys, monkeypatch):
+    """``--mesh 1x1 --chain 4`` on the CPU: full groups go through the
+    chained sharded step (its calls counted here) and the partial ones
+    through single steps; one JSON line named for the mesh, the chain in its
+    detail; the group is gone afterwards."""
+    from gat_recommendation_torch.parallel import distributed, steps
+
+    slots = []
+    make = steps.make_chained_sharded_sparse_train_step
+
+    def counted(*args):
+        chained = make(*args)
+
+        def run(batches, gidxs, block):
+            slots.append(block.shape[0])
+            return chained(batches, gidxs, block)
+
+        return run
+
+    monkeypatch.setattr(steps, "make_chained_sharded_sparse_train_step", counted)
+    try:
+        result = bench.main_e2e(2400, 0, 1, 4, lazy=True, num_items=ITEMS, device="cpu", mesh_shape=(1, 1))
+    finally:
+        distributed.shutdown()
+    detail = result["_detail"]
+    assert detail["mesh"] == "1x1" and detail["chain"] == 4 and result["value"] > 0
+    assert slots and set(slots) == {4} and 4 * len(slots) < 5 * detail["steps_per_epoch"]  # and single steps
+    bench.emit(result)
+    _check_line(capsys.readouterr().out, "torch_train_sessions_per_sec_per_chip_e2e_mesh1x1")
+    assert not torch.distributed.is_initialized()
 
 
 def test_bench_over_a_1x1_mesh_runs_and_leaves_its_process_group(capsys):

@@ -251,6 +251,40 @@ def test_dense_trainer_takes_no_chain(corpus, tmp_path):
     assert trainer.opt_state["count"] == 10
 
 
+def test_chain_groups_of_global_batch_items(corpus):
+    """(batch, GlobalBatchMeta) items, as a mesh's data ranks get them, form
+    the groups plain batches form (``transfer_chain_group``, which the
+    Trainer and the bench share): a full group stacks the GradIndexes of the
+    metas' global ids; a partial group runs as a SUBCHAIN and single steps
+    (nine items at chain 12), each index from its meta; with several data
+    ranks an item without global ids raises; a group that mixes such items
+    with plain batches raises."""
+    _, port_ds = corpus
+    plain = list(_port_batches(port_ds))
+    items = list(port_batching.iterate_batches(port_ds, BATCH, engine="numpy", with_global_ids=True))
+    assert len(items) == len(plain) == 10 and all(isinstance(it, tuple) for it in items)
+    group = port_trainer.transfer_chain_group
+
+    def indexes(metas):
+        return port_batching.stack_grad_indices([port_batching.make_grad_index_from_ids(m.ids) for m in metas])
+
+    (entry,) = group(items[:4], 4, "cpu", n_data=2)
+    assert entry[0] == "chained" and all(np.array_equal(g.numpy(), w)
+                                         for g, w in zip(entry[2], indexes([m for _, m in items[:4]])))
+    assert torch.equal(entry[1].node_ids, port_batching.stack_batches([b for b, _ in items[:4]]).node_ids)
+    entries = group(items[:9], 12, "cpu", n_data=2)
+    assert [isinstance(e[0], str) for e in entries] == [True, False]  # a SUBCHAIN, 1 single
+    assert [isinstance(e[0], str) for e in group(plain[:9], 12, "cpu")] == [True, False]
+    assert all(np.array_equal(g.numpy(), w) for g, w in zip(entries[0][2], indexes([m for _, m in items[:8]])))
+    single = port_batching.make_grad_index_from_ids(items[8][1].ids)
+    assert all(np.array_equal(g.numpy(), w) for g, w in zip(entries[1][1], single))
+    assert torch.equal(entries[1][0].node_ids, torch.as_tensor(items[8][0].node_ids))
+    with pytest.raises(ValueError, match="global ids"):
+        group(plain[:2], 4, "cpu", n_data=2)
+    with pytest.raises(ValueError, match="mixes"):
+        group([items[0], plain[1], items[2], plain[3]], 4, "cpu")
+
+
 def test_a_resumed_chained_run_equals_an_uninterrupted_one(tmp_path):
     """Resume rebuilds the optimizer state and with it the chained step; the
     run goes on as if it had not stopped."""

@@ -98,8 +98,6 @@ def test_every_flag_has_the_jax_scripts_default(script, monkeypatch):
     ([], {"WORLD_SIZE": "2"}, 0, ValueError, "MASTER_ADDR"),
     # two GPUs for one process: one process a GPU, or --no-mesh
     ([], {}, 2, ValueError, "torchrun --nproc-per-node=2"),
-    # chained steps under a mesh are not ported
-    (["--mesh", "--chain", "4"], {}, 0, NotImplementedError, "A8b"),
 ])
 def test_mesh_and_multi_process_launches_raise(argv, env, gpus, error, match, monkeypatch, tmp_path):
     """What the flags and the launch ask for that cannot run raises, and the
@@ -115,6 +113,38 @@ def test_mesh_and_multi_process_launches_raise(argv, env, gpus, error, match, mo
     with pytest.raises(error, match=match):  # before any input is read
         train_baseline.main([*argv, *device, *data_flags(tmp_path), *SMALL_MODEL, "--output-dir", str(tmp_path)])
     assert not torch.distributed.is_initialized() and distributed.process_count() == 1
+
+
+def _train_baseline(argv: list[str]):
+    """The port's train_baseline on `argv` on the CPU, through build,
+    initialize and run; the Trainer, with any process group left."""
+    from gat_recommendation_torch.parallel import distributed
+
+    args = train_baseline.parse_args([*argv, "--device", "cpu"])
+    try:
+        model, trainer, edges = train_baseline.build(args)
+        train_baseline.initialize(args, model, trainer, edges)
+        train_baseline.run(args, trainer)
+    finally:
+        distributed.shutdown()
+    return trainer
+
+
+@pytest.mark.parametrize("chain", [None, "4"], ids=["default_chain", "chain4"])
+def test_train_baseline_over_a_1x1_mesh_trains_chained(processed, tmp_path, chain):
+    """``--mesh`` with ``--chain 4`` and with the default chain (32) on the
+    CPU: a 1x1 mesh in a gloo group of one trains through the chained sharded
+    step, and its history equals the run without a mesh at the same chain
+    (at one rank every sum over a group is the tensor itself); the process
+    group is left at the end."""
+    argv = [*data_flags(processed), *SMALL_MODEL, *(["--chain", chain] if chain else [])]
+    plain = _train_baseline([*argv, "--no-mesh", "--output-dir", str(tmp_path / "plain")])
+    meshed = _train_baseline([*argv, "--mesh", "--output-dir", str(tmp_path / "mesh")])
+    assert meshed.mesh is not None and tuple(meshed.mesh.shape) == (1, 1) and plain.mesh is None
+    assert meshed.chain == plain.chain == int(chain or 32)
+    assert meshed.chained_dispatches == plain.chained_dispatches > 0
+    assert history(tmp_path / "mesh") == history(tmp_path / "plain")
+    assert not torch.distributed.is_initialized()
 
 
 class _Client:

@@ -60,14 +60,17 @@ _PARALLEL_PROBE = """
 import sys
 import gat_recommendation_torch.parallel
 from gat_recommendation_torch.parallel import distributed, mesh, steps, topk
+from gat_recommendation_torch.parallel.steps import make_chained_sharded_sparse_train_step, shard_chained_batch
+from gat_recommendation_torch.scripts.pipeline import collective_accounting
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "gat_recommendation_tpu"))
 print(sorted(m for m in sys.modules if m.startswith("gat_recommendation_torch.parallel")), leaked)
 """
 
 
 def test_the_parallel_package_stands_alone():
-    """The mesh, its steps, the two-phase top-k and the process group
-    import in a fresh interpreter without JAX or the JAX package."""
+    """The mesh, its steps (the chained one too), the two-phase top-k, the
+    process group and the collective accounting import in a fresh
+    interpreter without JAX or the JAX package."""
     out = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
@@ -76,11 +79,13 @@ def test_the_parallel_package_stands_alone():
         assert f"gat_recommendation_torch.parallel.{name}" in out.stdout
 
 
-@pytest.mark.parametrize("entry", ["bench", "train_baseline"])
-def test_the_mesh_entry_points_default_to_the_card_and_raise_without_one(entry, monkeypatch):
-    """``bench --mesh 1x1`` and ``train_baseline --mesh`` ask for cuda (and
-    its nccl backend) and raise where there is none; no mesh moves to the
-    CPU or to gloo on its own."""
+@pytest.mark.parametrize("entry,chain", [("bench", ["--chain", "1"]), ("train_baseline", ["--chain", "1"]),
+                                         ("bench", []), ("train_baseline", [])],
+                         ids=["bench", "train_baseline", "bench_default_chain", "train_baseline_default_chain"])
+def test_the_mesh_entry_points_default_to_the_card_and_raise_without_one(entry, chain, monkeypatch):
+    """``bench --mesh 1x1`` and ``train_baseline --mesh``, at chain 1 and at
+    their default chain (32), ask for cuda (and its nccl backend) and raise
+    where there is none; no mesh moves to the CPU or to gloo on its own."""
     import torch
 
     from gat_recommendation_torch import bench
@@ -89,9 +94,9 @@ def test_the_mesh_entry_points_default_to_the_card_and_raise_without_one(entry, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "bench":
-            bench.main(["--mesh", "1x1", "--chain", "1", "--sessions", "100"])
+            bench.main(["--mesh", "1x1", *chain, "--sessions", "100"])
         else:
-            train_baseline.main(["--mesh", "--n-model", "1", "--chain", "1"])
+            train_baseline.main(["--mesh", "--n-model", "1", *chain])
 
 
 CLIS = ("train_baseline", "evaluate_local", "model_quality_gate", "run_full_pipeline")

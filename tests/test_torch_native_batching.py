@@ -7,7 +7,8 @@ counts, targets, negatives, sample mask), and build the same CSR graph.
 ``iterate_batches`` with default arguments must give the same epoch in both
 packages: both default to ``engine="auto"``, which resolves to the C++ engine
 where it builds. The port builds its library at first use under a file lock,
-so concurrent first builds all load one complete library.
+so concurrent first builds all load one complete library. An epoch of the
+port's engine leaves no reference cycles.
 """
 
 import subprocess
@@ -189,6 +190,26 @@ def test_native_and_numpy_engines_differ_only_in_the_negatives(shuffle):
         for row, s in enumerate(x.sample_mask.nonzero().flatten().tolist()):
             assert s == row  # valid slots first, padding after
     assert not all(torch.equal(x.negatives, y.negatives) for x, y in zip(native, numpy))
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_the_native_engine_leaves_no_reference_cycles(workers):
+    """An epoch of the C++ engine leaves nothing for the garbage collector:
+    its pointers into the numpy arrays refer to no one (``a.ctypes.data_as``
+    casts a pointer that refers to itself, two objects a call, and a full
+    collection of such garbage, landing in a timed window, stalled it)."""
+    import gc
+
+    _, ds = _datasets()
+    gc.collect()
+    gc.disable()
+    try:
+        batches = list(port.iterate_batches(ds, 16, shuffle=True, seed=0, engine="native", workers=workers))
+        port_native.build_csr(np.array([1, 2, 3]), np.array([2, 3, 1]), 5)
+        found = gc.collect()
+    finally:
+        gc.enable()
+    assert len(batches) > 5 and found == 0
 
 
 def test_a_failed_build_raises_with_the_compilers_output(tmp_path, monkeypatch):

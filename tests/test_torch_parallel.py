@@ -21,6 +21,15 @@ data rank's slots are mostly padding. A 2-process Trainer (2x1 and 1x2)
 equals the 1-process one over two epochs with evaluation, its checkpoint
 loads on one process, and a one-process checkpoint loads on the mesh.
 
+Chained steps under the mesh (ROADMAP A8b): the chained sharded step over a
+group of 4, a sub-chain of 2 and a single step EQUALS seven unchained sharded
+steps bit for bit (losses, table, moments, ``last_step``, every other
+tensor), eager and lazy, at dropout 0.1, in every shape's workers; and the
+2-process Trainer at ``chain=4`` (a full group and a partial one of singles
+an epoch) matches the JAX mesh Trainer at ``chain=4`` from the same weights at
+dropout 0 (loss 1e-5 relative, metrics 1e-9, weights as
+``_assert_weights_close``).
+
 Every spawn has its own timeout and every worker leaves the process group on
 every exit path.
 """
@@ -189,6 +198,39 @@ def _run_steps(model, mesh, mode: str, batches: list, seeds: list) -> dict:
     return {"losses": losses, "state": None if whole is None else _numpy(whole)}
 
 
+CHAIN_GROUPS = [4, 2, 1]  # a full group, a sub-chain, a single step
+CHAIN_ORDER = [0, 1, 2, 0, 1, 2, 0]  # the batches of the seven steps
+CHAIN_SEEDS = [20 + i for i in range(len(CHAIN_ORDER))]
+
+
+def _run_chained(model, mesh, lazy: bool, batches: list, chained: bool) -> dict:
+    """Seven sharded sparse steps at CHAIN_SEEDS: one by one, or as
+    CHAIN_GROUPS through the chained step (slot i at the unchained step's
+    row of the step block); the losses and the whole state on rank 0."""
+    opt = FusedEmbeddingAdamW(**HP, lazy=lazy)
+    model, state = steps.shard_params(model, opt.init(model), mesh)
+    loss_fn = create_loss_function("dual")
+    single = steps.make_sharded_sparse_train_step(model, loss_fn, opt, state, mesh)
+    chain = steps.make_chained_sharded_sparse_train_step(model, loss_fn, opt, state, mesh)
+    group_batches = [batches[i] for i in CHAIN_ORDER]
+    losses, i = [], 0
+    for size in CHAIN_GROUPS if chained else [1] * len(CHAIN_ORDER):
+        group, seeds = group_batches[i:i + size], CHAIN_SEEDS[i:i + size]
+        gidxs = [port_batching.make_grad_index(b) for b in group]
+        if size == 1:
+            losses.append(single((steps.shard_batch(group[0], mesh), port_batching.to_device(gidxs[0], "cpu")),
+                                 seeds[0]).item())
+        else:
+            block = port_trainer.next_steps_block(model, opt, state, seeds, "cpu")
+            losses.extend(chain(steps.shard_chained_batch(port_batching.stack_batches(group), mesh),
+                                port_batching.to_device(port_batching.stack_grad_indices(gidxs), "cpu"),
+                                block).tolist())
+        i += size
+    opt.materialize(model, state)
+    whole = port_mesh.unshard({**model.state_dict(), **opt.export_state(state, model)}, mesh)
+    return {"losses": losses, "count": state["count"], "state": None if whole is None else _numpy(whole)}
+
+
 def _steps_task(p: dict) -> dict:
     n_data, n_model = p["shape"]
     mesh = port_mesh.make_mesh(n_data, n_model, device="cpu")
@@ -200,6 +242,9 @@ def _steps_task(p: dict) -> dict:
         out[mode] = _run_steps(_port_model(p["weights"]), mesh, mode, [batches[i] for i in order],
                                [100 + i for i in range(len(order))])
     out["eager_dropout"] = _run_steps(_port_model(p["weights"], dropout=0.1), mesh, "eager", batches, [7, 8, 9])
+    out["chained"] = {(mode, chained): _run_chained(_port_model(p["weights"], dropout=0.1), mesh, mode == "lazy",
+                                                    batches, chained)
+                      for mode in ("eager", "lazy") for chained in (False, True)}
     # The two-phase top-k over this rank's sessions and rows.
     # The eval steps: the GSPMD twin (a dense top-k a shard) and v2 (kernel 2's plain twin).
     model = _port_model(p["weights"])
@@ -245,23 +290,32 @@ def _steps_task(p: dict) -> dict:
     return out
 
 
-def _trainer(model, ds, tmp: str, mesh=None, n_data: int = 1, data_index: int = 0, max_epochs: int = 2):
+def _trainer(model, ds, tmp: str, mesh=None, n_data: int = 1, data_index: int = 0, max_epochs: int = 2,
+             chain: int = 1):
     feed = dict(engine="numpy", process_index=data_index, process_count=n_data, with_global_ids=n_data > 1)
     return port_trainer.Trainer(
         model,
         lambda epoch: port_batching.iterate_batches(ds, BATCH, shuffle=True, seed=epoch, **feed),
         lambda: port_batching.iterate_batches(ds, BATCH, **feed),
         optimizer=FusedEmbeddingAdamW(**HP, lazy=True), output_dir=tmp, max_epochs=max_epochs,
-        loss_fn=create_loss_function("dual"), sparse_embedding_grads=True, device="cpu", mesh=mesh)
+        loss_fn=create_loss_function("dual"), sparse_embedding_grads=True, chain=chain, device="cpu", mesh=mesh)
 
 
-def _corpus():
+TRAINER_CHAIN = 4  # an epoch: seven batches of node bucket 8 (a full group and three singles), two of 16
+
+
+def _corpus_columns():
     rng = np.random.default_rng(4)
     lengths = np.clip(rng.geometric(0.25, 60) + 2, 3, 16)
     total = int(lengths.sum())
     sid, ts, items = np.repeat(np.arange(60), lengths), np.arange(total), rng.integers(1, V, total)
     edges = (rng.integers(1, V, 800), rng.integers(1, V, 800))
-    return port_batching.SessionDataset((sid, ts, items), edges, num_items=V)
+    return (sid, ts, items), edges
+
+
+def _corpus():
+    columns, edges = _corpus_columns()
+    return port_batching.SessionDataset(columns, edges, num_items=V)
 
 
 def _trainer_task(p: dict) -> dict:
@@ -276,8 +330,17 @@ def _trainer_task(p: dict) -> dict:
     other.load_checkpoint("latest")
     loaded = port_mesh.unshard({**other.model.state_dict(),
                                 **other.optimizer.export_state(other.opt_state, other.model)}, mesh)
+    # The chained mesh Trainer at dropout 0, against the JAX one.
+    chained = _trainer(_port_model(p["weights"]), _corpus(), p["chained_dir"], mesh, n_data, d, chain=TRAINER_CHAIN)
+    chained.init_state(reset_parameters=False)
+    chained_history = chained.train()
+    chained_state = port_mesh.unshard({**chained.model.state_dict(),
+                                       **chained.optimizer.export_state(chained.opt_state, chained.model)}, mesh)
     return {"history": history, "loaded": None if loaded is None else _numpy(loaded),
-            "epoch": other.current_epoch}
+            "epoch": other.current_epoch,
+            "chained": {"history": chained_history, "dispatches": chained.chained_dispatches,
+                        "eval_dispatches": chained.chained_eval_dispatches, "count": chained.opt_state["count"],
+                        "state": None if chained_state is None else _numpy(chained_state)}}
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +507,19 @@ def test_sharded_step_with_dropout_matches_the_one_process_step(mesh_run, jax_st
     _check_against_port(out["eager_dropout"], _one_process(jax_start[3], "eager", [0, 1, 2], [7, 8, 9], 0.1))
 
 
+@pytest.mark.parametrize("mode", ["eager", "lazy"])
+def test_chained_sharded_step_equals_the_unchained_one_bit_for_bit(mesh_run, mode):
+    """Dropout 0.1; a group of 4, a sub-chain of 2 and a single step against
+    seven single steps: losses, the optimizer's count and every tensor of
+    the state EQUAL (a chained slot is the unchained step with its row)."""
+    _, out = mesh_run
+    want, got = out["chained"][(mode, False)], out["chained"][(mode, True)]
+    assert got["losses"] == want["losses"] and got["count"] == want["count"] == len(CHAIN_ORDER)
+    assert set(got["state"]) == set(want["state"]) and len(want["state"]) > 10
+    for name, w in want["state"].items():
+        np.testing.assert_array_equal(got["state"][name], w, err_msg=name)
+
+
 def test_sharded_topk_ids_equal_the_jax_sharded_topk(mesh_run):
     import jax
     import jax.numpy as jnp
@@ -528,21 +604,31 @@ def single_trainer(jax_start, tmp_path_factory):
     return str(tmp), history, state
 
 
-@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
-def test_trainer_over_a_mesh_equals_the_one_process_trainer(shape, jax_start, single_trainer, tmp_path):
+@pytest.fixture(scope="module", params=[(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def trainer_run(request, jax_start, single_trainer, tmp_path_factory):
+    """One 2-process spawn a mesh shape: the Trainer runs of rank 0 (at
+    dropout 0.1 against the one-process Trainer, and the chained one at
+    dropout 0 against the JAX Trainer)."""
+    shape = request.param
+    out_dir = tmp_path_factory.mktemp(f"mesh{shape[0]}x{shape[1]}")
+    out = _spawn("trainer", 2, {"shape": shape, "weights": jax_start[3], "dir": str(out_dir / "plain"),
+                                "chained_dir": str(out_dir / "chained"), "single_dir": single_trainer[0]})
+    return shape, out_dir / "plain", out
+
+
+def test_trainer_over_a_mesh_equals_the_one_process_trainer(trainer_run, jax_start, single_trainer):
     """Two epochs of lazy sparse steps at dropout 0.1 with an evaluation
     after each: losses 1e-5, metrics equal; the mesh's checkpoint is the
     one-process file, and loads on one process with the one-process state
     (1e-6); the one-process checkpoint loads on the mesh."""
     single_dir, history, state = single_trainer
-    out = _spawn("trainer", 2, {"shape": shape, "weights": jax_start[3], "dir": str(tmp_path),
-                                "single_dir": single_dir})
+    _, out_dir, out = trainer_run
     np.testing.assert_allclose(out["history"]["train_loss"], history["train_loss"], rtol=LOSS_RTOL)
     for got, want in zip(out["history"]["val_metrics"], history["val_metrics"]):
         for key in want:
             assert got[key] == pytest.approx(want[key], abs=1e-9), key
-    assert (tmp_path / "history.json").exists() and (tmp_path / "checkpoint_best").exists()
-    reader = _trainer(_port_model(jax_start[3], dropout=0.1), _corpus(), str(tmp_path))
+    assert (out_dir / "history.json").exists() and (out_dir / "checkpoint_best").exists()
+    reader = _trainer(_port_model(jax_start[3], dropout=0.1), _corpus(), str(out_dir))
     reader.load_checkpoint("latest")
     assert reader.current_epoch == 2 and reader.history["train_loss"] == out["history"]["train_loss"]
     loaded = {"losses": [], "state": _numpy({**reader.model.state_dict(),
@@ -551,6 +637,56 @@ def test_trainer_over_a_mesh_equals_the_one_process_trainer(shape, jax_start, si
     assert out["epoch"] == 2
     for name, w in state.items():
         np.testing.assert_array_equal(out["loaded"][name], w, err_msg=name)  # the bytes of the file
+
+
+def _jax_chained_trainer(jax_start, shape, out_dir):
+    """The JAX Trainer on a mesh of `shape` at chain TRAINER_CHAIN from the
+    start weights, lazy, dropout 0: its history and final (params, state,
+    opt_state)."""
+    import jax
+    import pandas as pd
+
+    from gat_recommendation_tpu.data import batching as ref_batching
+    from gat_recommendation_tpu.parallel import make_mesh
+    from gat_recommendation_tpu.train.losses import create_loss_function as jax_loss
+    from gat_recommendation_tpu.train.optimizers import FusedEmbeddingAdamW as JaxOptimizer
+    from gat_recommendation_tpu.train.trainer import Trainer as JaxTrainer
+
+    model, params, state, _ = jax_start
+    (sid, ts, items), edges = _corpus_columns()
+    ds = ref_batching.SessionDataset(pd.DataFrame({"session_id": sid, "timestamp": ts, "itemid": items}), edges,
+                                     num_items=V)
+    trainer = JaxTrainer(
+        model, lambda epoch: ref_batching.iterate_batches(ds, BATCH, shuffle=True, seed=epoch, engine="numpy"),
+        lambda: ref_batching.iterate_batches(ds, BATCH, engine="numpy"),
+        optimizer=JaxOptimizer(**HP, use_pallas=False, lazy=True), output_dir=out_dir, max_epochs=2,
+        loss_fn=jax_loss("dual"), sparse_embedding_grads=True, chain=TRAINER_CHAIN,
+        mesh=make_mesh(*shape, devices=jax.devices()[: shape[0] * shape[1]]))
+    params, state = (jax.tree.map(lambda x: jax.numpy.array(x, copy=True), t) for t in (params, state))
+    history = trainer.train(params, state, trainer.optimizer.init(params))  # donates its copies
+    p, s, o = trainer._final
+    return trainer, history, {"params": jax.tree.map(np.asarray, p), "state": jax.tree.map(np.asarray, s),
+                              "opt": jax.tree.map(np.asarray, o)}
+
+
+def test_chained_trainer_over_a_mesh_matches_the_jax_chained_mesh_trainer(trainer_run, jax_start, tmp_path):
+    """The port's twin of the JAX package's
+    ``test_sharded_chained_step_matches_unchained``: two epochs at
+    ``chain=4`` on the mesh, lazy, dropout 0, against the JAX mesh Trainer at
+    ``chain=4`` on as many virtual CPU devices: losses 1e-5 relative, metrics
+    1e-9, the table, moments, ``last_step`` and every other weight as
+    ``_check_against_jax``; the same chained dispatches, none in evaluation."""
+    shape, _, out = trainer_run
+    got = out["chained"]
+    jt, want, final = _jax_chained_trainer(jax_start, shape, tmp_path)
+    assert got["dispatches"] == jt.chained_dispatches == 2 and got["eval_dispatches"] == 0
+    assert got["count"] == 18  # nine steps an epoch, chained or not
+    for g, w in zip(got["history"]["val_metrics"], want["val_metrics"], strict=True):
+        assert set(g) == set(w)
+        for key, value in w.items():
+            assert g[key] == pytest.approx(value, abs=1e-9), key
+    _check_against_jax({"losses": got["history"]["train_loss"], "state": got["state"]},
+                       {"losses": want["train_loss"], **final}, jax_start)
 
 
 # ---------------------------------------------------------------------------

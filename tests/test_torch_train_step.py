@@ -27,7 +27,7 @@ import pandas as pd
 import pytest
 import torch
 
-from gat_recommendation_torch import bench, convert
+from gat_recommendation_torch import convert
 from gat_recommendation_torch.data import batching as port_batching
 from gat_recommendation_torch.models import registry
 from gat_recommendation_torch.ops import masked as port_masked
@@ -395,20 +395,31 @@ def test_factories_default_to_the_card_and_raise_without_one():
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    """What still raises: chained steps over a mesh (multi-GPU training
-    itself is ported; ROADMAP A8b), the Recommender's refusal of an
-    FFN checkpoint (as the JAX Recommender's), an optimizer without a sparse
-    update. The FFN branch, GAT and GraphSAGE, which raised until they were
-    ported, build on the CPU, and the approximate top-k, which raised until
-    it was ported, returns the dense top-k."""
+    """What still raises: the Recommender's refusal of an FFN checkpoint (as
+    the JAX Recommender's), an optimizer without a sparse update. Chained
+    steps over a mesh (ROADMAP A8b), the FFN branch, GAT and GraphSAGE, which
+    raised until they were ported, build on the CPU (the mesh's chained step
+    on a 1x1 gloo mesh, its evaluation unchained), and the approximate top-k,
+    which raised until it was ported, returns the dense top-k."""
     from gat_recommendation_torch.ops.scoring import full_catalog_topk
+    from gat_recommendation_torch.parallel import distributed
+    from gat_recommendation_torch.parallel.mesh import make_mesh
     from gat_recommendation_torch.serving.recommender import Recommender
     from gat_recommendation_torch.train import checkpoint
+    from gat_recommendation_torch.train.trainer import Trainer
 
     model = registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
                                   laplacian_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):  # chained steps over a mesh
-        bench.main_e2e(100, 0, 1, 32, lazy=True, num_items=50, device="cpu", mesh_shape=(1, 1))
+    distributed.single_process_group("cpu")
+    try:
+        meshed = Trainer(registry.create_model("graph_transformer_optimized", 50, embedding_dim=8, hidden_dim=8,
+                                               laplacian_k=2, device="cpu"),
+                         lambda epoch: iter(()), lambda: iter(()), sparse_embedding_grads=True, chain=32,
+                         device="cpu", mesh=make_mesh(1, 1, device="cpu"))
+        meshed.init_state()
+        assert meshed.chain == 32 and meshed._chained_step is not None and meshed._chained_eval is None
+    finally:
+        distributed.shutdown()
     sess = torch.randn(1, 8, generator=torch.Generator().manual_seed(0))
     approx = full_catalog_topk(sess, model.item_embedding, 5, 50, method="approx")
     dense = full_catalog_topk(sess, model.item_embedding, 5, 50, method="dense")
