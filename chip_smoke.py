@@ -192,8 +192,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
      bucket (every forward reads packed rows); (c)
      scripts.pipeline.corpus_discrimination on a small corpus, the four
      families at D=256 for two epochs (kernels 1-3 and node dropout
-     counted); (d) scripts.train.run_ablations on phase 13's corpus v3, two
-     ablations for one epoch (the dense step: kernel 4 counted); (e)
+     counted); (d) scripts.train.run_ablations on phase 13's corpus v3, one
+     ablation for one epoch (the dense step: kernel 4 counted); (e)
      scripts.data.convert_yoochoose on 220,000 written events; (g) on every
      path that copies batches to the card (phases 8, 11, 12 and 13) each
      kernel 1 launch read the packed rows, and serving's none; phase 11's sessions a
@@ -211,9 +211,9 @@ Phases, each fatal on failure (nothing is caught and carried on):
      weights and batches (loss 1e-5, state 1e-6, metrics and top-k ids equal,
      dropout masks equal, also of two simulated data ranks' halves), the lazy
      mesh run saved and loaded on one GPU; (c) bench --mesh 1x1 --chain 1
-     against --chain 1 on phase 11's 30,000 sessions, in turns mesh, plain,
-     plain, mesh, the first pair with a traced epoch (sessions/s, busy
-     seconds, idle share; every run with its windows' host account); (d) the
+     against --chain 1 on phase 11's 30,000 sessions, one pair, mesh first,
+     each with a traced epoch (sessions/s, busy seconds, idle share; every
+     run with its windows' host account); (d) the
      chained mesh (A8b): full-width Trainers on the 1x1 NCCL mesh at chain 32
      (lazy, and eager through B1; dropout 0.1; an epoch of phase 11's corpus,
      whose smallest bucket holds a full group and a partial one, and an
@@ -226,7 +226,28 @@ Phases, each fatal on failure (nothing is caught and carried on):
      path's launches ((b)'s and (d)'s mesh runs, the mesh
      bench of (c) and the first of (e)) counted, the chained ones through the
      graph replays.
- 17. a JSON line of every kernel's numbers, then the nvidia-smi line, then
+ 17. the Quickstart's export step, the tracked runs and the first optimizer
+     of a process: (a) scripts.pipeline.export_onnx --mode production on
+     phase 13 (b)'s checkpoint_best (its optimizer file dropped in phase 13):
+     item_embeddings.npy EQUAL to the table restore_params_state gives, in
+     its padded shape, the metadata with the JAX script's keys, the scorer
+     check under 1e-4, the export's seconds and its scoring p50/p95 (50
+     requests, each read back); --mode demo --num-items 466865, timed; (b)
+     the Vertex-style server with MODEL_DIR on (a)'s export answers phase
+     14's 200 requests through /predict EQUAL to the server built from the
+     checkpoint as phase 14 built its own, and on phase 4's checkpoint
+     exported the same way EQUAL to phase 14's server's answers (the
+     phantom ids answered, and a session of one phantom id, printed); (c)
+     scripts.pipeline.mlflow_experiment for each of the four models on the
+     card (2 epochs, counted: per dense step 1 dense AdamW; node dropout
+     and kernel 1 as the model's layers take them), from the CPU run's
+     weights, against the script's CPU run: params equal, losses finite and
+     within MLFLOW_LOSS_RTOL; kernel 1 and node dropout at that path's
+     shapes (B = 16, N = 8) against their plain versions; (d) beside (c), a
+     child process (collector off) builds a full-width lazy Trainer inside a
+     function and drops it, twice: memory_allocated back to its level
+     before each build, the MiB freed printed.
+ 18. a JSON line of every kernel's numbers, then the nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
@@ -316,6 +337,8 @@ from gat_recommendation_torch.scripts import bench_attention, bench_scoring, eva
 from gat_recommendation_torch.scripts.data import convert_yoochoose, regen_refscale
 from gat_recommendation_torch.scripts.pipeline import (
     corpus_discrimination,
+    export_onnx,
+    mlflow_experiment,
     model_quality_gate,
     run_full_pipeline,
     validate_sr_onchip,
@@ -371,7 +394,7 @@ SERVE_TOL = 1e-4  # card vs CPU copy, per score
 ATTN_GRAD_TOL = dict(rtol=1e-5, atol=2e-5)  # float32 gradients, summation order differs
 TABLE_TOL = dict(rtol=1e-6, atol=1e-7)  # AdamW table; the moments must be bit-equal
 ADAMW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-5)
-ROWS = 467_456  # padded_rows(NUM_ITEMS)
+ROWS = 467_456  # the kernel checks' table, 913 x 512 rows (the models' padded_rows(NUM_ITEMS) is 466,944)
 TRAIN_BATCH, NEGATIVES, DROPOUT = 512, 5, 0.1
 NUM_SESSIONS = 4000
 # Card vs CPU copy of the port, dropout 0: loss; touched table rows and BatchNorm
@@ -2664,6 +2687,8 @@ QUICKSTART_MODEL = "graph_transformer_optimized"  # train_baseline's default
 TPU_HISTORY_RECALL_AT_10 = (0.2883, 0.3362)
 QUICKSTART_RECALL_FLOOR = 0.25
 GATE_METRIC_TOL = 1e-9  # the gate's metrics phase runs evaluate_local's code on the same batches
+# Where phase 13 leaves (b)'s checkpoint_best (the defaults' run) for phase 17's export.
+EXPORTED_CHECKPOINT = "eager_checkpoint_best"
 EVAL_BATCH, PIPELINE_BATCH, PIPELINE_DIM = 256, 32, 64
 
 
@@ -2945,7 +2970,8 @@ def quickstart_kernels(gen: torch.Generator, splits: dict[str, SessionDataset], 
 
 def quickstart(gen: torch.Generator, sass: dict, workdir: Path) -> dict:
     """Phase 13: (a) to (f), in `workdir` (corpus v3 stays in its data/
-    for phase 15). `sass`: lazy_series_sass of the built library."""
+    for phase 15, (b)'s checkpoint_best in EXPORTED_CHECKPOINT for phase 17).
+    `sass`: lazy_series_sass of the built library."""
     out: dict = {}
     t0 = time.perf_counter()
     out["corpus"] = quickstart_corpus(workdir / "data")
@@ -2962,7 +2988,12 @@ def quickstart(gen: torch.Generator, sass: dict, workdir: Path) -> dict:
     out.update(quickstart_evaluation(processed, workdir))
     for key in ("eval_eager", "eval_lazy", "gate"):
         log(f"[phase 13] {key} {json.dumps(out[key])}")
-    for label in ("eager", "lazy"):  # 1.47 GB a checkpoint: gone once read
+    # Phase 17 exports (b)'s checkpoint_best: its parameters and buffers stay
+    # (the optimizer's moments go); the rest, 1.47 GB a checkpoint, goes once read.
+    kept = workdir / "eager" / QUICKSTART_MODEL / "checkpoint_best"
+    (kept / checkpoint.OPTIMIZER_FILE).unlink()
+    kept.rename(workdir / EXPORTED_CHECKPOINT)
+    for label in ("eager", "lazy"):
         shutil.rmtree(workdir / label)
     out["pipeline"] = quickstart_pipeline(processed, workdir)
     log(f"[phase 13] run_full_pipeline {json.dumps(out['pipeline'])}")
@@ -3126,7 +3157,8 @@ def mean_embedding_servers(workdir: Path) -> dict:
     answers against a CPU copy of the model, HTTP latency over
     SERVER_REQUESTS requests, then the dev model's p50 by stage in process;
     the no-op Metrics and the dataclass schemas where their packages are
-    absent."""
+    absent. The Vertex server's answers to the SERVER_REQUESTS requests are
+    kept under "vertex_answers"."""
     model = dev_app.MeanEmbeddingModel.from_checkpoint(str(workdir / "ckpt"), device="cuda")
     cpu = dev_app.MeanEmbeddingModel(model.item_embeddings.cpu().numpy(), device="cpu")
     requests = latency_bench.make_requests(NUM_ITEMS, SERVER_REQUESTS)
@@ -3148,6 +3180,8 @@ def mean_embedding_servers(workdir: Path) -> dict:
                 ms.append(t)
             for r, answer in zip(requests[:SERVER_CHECKED], answers):  # after the timing: the CPU copy's threads
                 agree(answer, cpu.recommend(r.session_items, r.k))
+            if name == "vertex":
+                out["vertex_answers"] = answers  # phase 17 serves the exported table against them
             batch = {"sessions": [r.session_items for r in requests[:4]] + [[10 ** 7]], "k": 5}
             status, payload, _ = post(f"{url}/recommend/batch", batch)
             results = payload["results"]
@@ -3222,6 +3256,7 @@ def serving_rest(gen: torch.Generator) -> tuple[dict, dict]:
         out["selection"], selection_launches = selection_paths(workdir, gen)
         log(f"[phase 14] approx and two_level_topk by chunk {json.dumps(out['selection'])}")
         out["servers"] = mean_embedding_servers(workdir)
+        out["vertex_answers"] = out["servers"].pop("vertex_answers")
         log(f"[phase 14] dev and Vertex servers {json.dumps(out['servers'])}")
     torch.cuda.empty_cache()
     out["bench_scoring"], bench_launches = scoring_bench()
@@ -3236,11 +3271,11 @@ def serving_rest(gen: torch.Generator) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 # The probe's corpus: small, all four families at D = 256 (the trainers' widths),
-# two epochs; the ablations: two of configs/ablations.yaml, one epoch.
+# two epochs; the ablations: one of configs/ablations.yaml, one epoch.
 DISCRIMINATION_ITEMS = 30_000
 DISCRIMINATION = ["--num-sessions", "4000", "--num-items", str(DISCRIMINATION_ITEMS), "--num-active", "3000",
                   "--num-clusters", "30", "--max-epochs", "2", "--patience", "2"]
-ABLATION_SUBSET = ["no_laplacian_pe", "loss_bpr"]
+ABLATION_SUBSET = ["loss_bpr"]
 BENCH_ATTENTION_STEPS = 50
 YOOCHOOSE_CLICKS, YOOCHOOSE_BUYS = 200_000, 20_000
 
@@ -3295,8 +3330,8 @@ def discrimination_probe(workdir: Path) -> tuple[dict, dict]:
 
 
 def ablations(processed: Path, workdir: Path) -> tuple[dict, dict]:
-    """(d) scripts.train.run_ablations on corpus v3 (phase 13's files), two
-    ablations of configs/ablations.yaml for one epoch at full width: the dense
+    """(d) scripts.train.run_ablations on corpus v3 (phase 13's files), the
+    ABLATION_SUBSET of configs/ablations.yaml for one epoch at full width: the dense
     step, so kernel 4 once a step, with kernels 1 (packed rows) and 2."""
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3610,15 +3645,15 @@ def mesh_against_one_gpu(mesh, epoch: list, workdir: Path) -> tuple[dict, dict]:
 
 def bench_over_the_mesh() -> tuple[list, dict]:
     """(c) the bench at BENCH_SESSIONS sessions, chain 1, lazy, 3/3 threads,
-    in turns ``--mesh 1x1`` (the sharded step on the 1x1 NCCL mesh), without
-    the mesh, without, with; the first pair with one traced epoch (the
-    device's busy seconds and idle share). Returns the results and the
-    launches of the first mesh run (counted from 0)."""
+    ``--mesh 1x1`` (the sharded step on the 1x1 NCCL mesh), then without the
+    mesh, each with one traced epoch (the device's busy seconds and idle
+    share). Returns the results and the launches of the mesh run (counted
+    from 0)."""
     results, launches = [], None
-    for i, mesh_shape in enumerate(((1, 1), None, None, (1, 1))):
+    for mesh_shape in ((1, 1), None):
         reset_launch_counts()
         result = bench.main_e2e(BENCH_SESSIONS, 3, BENCH_EPOCHS, 1, lazy=True, transfer_workers=3,
-                                mesh_shape=mesh_shape, profile=i < 2)
+                                mesh_shape=mesh_shape, profile=True)
         if launches is None:
             launches = launch_counts()
         if not (np.isfinite(result["value"]) and result["value"] > 0):
@@ -3808,6 +3843,284 @@ def mesh_phase(gen: torch.Generator, epoch: list) -> tuple[dict, dict]:
     log(f"[phase 16] launches on the mesh path {json.dumps(launches)}")
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 16] took {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the Quickstart's export step and a server on what it writes, the
+# tracked experiment runs, and the first optimizer of a process freed
+# ---------------------------------------------------------------------------
+
+# The JAX script's metadata keys, in its order, by mode.
+EXPORT_KEYS = {
+    "demo": ["mode", "exported_at", "num_items", "embedding_dim", "scorer_validation_max_diff",
+             "scoring_latency_ms", "onnx_exported"],
+    "production": ["mode", "exported_at", "source", "model_name", "epoch", "best_val_metric", "num_items",
+                   "embedding_dim", "scorer_validation_max_diff", "scoring_latency_ms", "onnx_exported"],
+}
+EXPORT_VALIDATION_LIMIT = 1e-4  # export_onnx's own limit, the JAX script's
+MLFLOW_EPOCHS, MLFLOW_BATCHES, MLFLOW_BATCH = 2, 4, 16  # the script's defaults and its batches
+# Per dense step of each model (the smoke entry's): node-dropout launches, and
+# kernel 1's layers (one forward and one backward launch each).
+MLFLOW_PER_STEP = {"graphsage": (6, 0), "gat": (10, 0), "graph_transformer": (18, 3),
+                   "graph_transformer_optimized": (4, 2)}
+# Each epoch's mean train loss, the card against the script's CPU run from the
+# same weights (the same dropout bits, float32, summation orders differ),
+# relative: 15x the largest difference measured on an H100, 6.4e-7
+# (graph_transformer; the other three 1.5e-7 to 2.7e-7).
+MLFLOW_LOSS_RTOL = 1e-5
+
+# A child process: the first optimizer of the process is built inside a
+# function (a full-width lazy Trainer's) and dropped with the collector off;
+# the card's memory must return to where it stood. Then a second build.
+REPAIR_CHILD = r"""
+import gc, json, sys, weakref
+gc.disable()
+import torch
+from gat_recommendation_torch.models.registry import create_model
+from gat_recommendation_torch.train.optimizers import FusedEmbeddingAdamW
+from gat_recommendation_torch.train.trainer import Trainer
+
+
+def build():
+    model = create_model("graph_transformer_optimized", int(sys.argv[1]), device="cuda")
+    trainer = Trainer(model, lambda epoch: [], lambda: [], optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5,
+                      lazy=True), output_dir=sys.argv[2], sparse_embedding_grads=True, chain=32, device="cuda")
+    trainer.init_state()
+    torch.cuda.synchronize()
+    return weakref.ref(trainer), torch.cuda.memory_allocated()
+
+
+out = []
+for _ in range(2):
+    before = torch.cuda.memory_allocated()
+    trainer, built = build()
+    out.append({"before": before, "built": built, "after": torch.cuda.memory_allocated(),
+                "trainer_alive": trainer() is not None})
+print(json.dumps({"builds": out, "gc_enabled": gc.isenabled()}))
+"""
+
+
+def start_repair_child(workdir: Path) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", REPAIR_CHILD, str(NUM_ITEMS), str(workdir / "repair")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
+
+
+def repair_result(child: subprocess.Popen) -> dict:
+    """The child's builds: the first Trainer freed at once (its weak
+    reference dead, memory_allocated back to its level before the build)."""
+    stdout, stderr = child.communicate(timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the repair child failed: rc {child.returncode}\n{stderr[-3000:]}")
+    got = json.loads(stdout.splitlines()[-1])
+    for i, b in enumerate(got["builds"]):
+        if b["trainer_alive"] or b["after"] != b["before"] or got["gc_enabled"]:
+            raise AssertionError(f"build {i + 1} of a full-width Trainer was not freed when dropped: {got}")
+    first = got["builds"][0]
+    return {**got, "mb_freed": (first["built"] - first["after"]) / 2 ** 20}
+
+
+def export_production(ckpt: Path, out: Path) -> dict:
+    """export_onnx --mode production on `ckpt`: item_embeddings.npy EQUAL
+    (bytes) to the table restore_params_state gives, in its padded shape;
+    the metadata with the JAX script's keys; the scorer check under its
+    limit. Seconds of the whole export."""
+    t0 = time.perf_counter()
+    meta = export_onnx.main(["--mode", "production", "--checkpoint", str(ckpt), "--output-dir", str(out)])
+    seconds = time.perf_counter() - t0
+    cmeta = checkpoint.load_meta(ckpt)
+    cfg = dict(cmeta["model_config"])
+    catalog = cfg.pop("num_items")
+    model = create_model(cmeta["model_name"], catalog, device="meta", **cfg)
+    table = checkpoint.restore_params_state(ckpt, model, "cpu").item_embedding.detach().numpy()
+    exported = np.load(out / "item_embeddings.npy")
+    if exported.dtype != np.float32 or exported.shape != (padded_rows(catalog), cfg["embedding_dim"]) or \
+            exported.tobytes() != table.tobytes():
+        raise AssertionError(f"export of {ckpt}: {exported.dtype} {exported.shape} is not the checkpoint's table")
+    if json.loads((out / "model_metadata.json").read_text()) != meta or list(meta) != EXPORT_KEYS["production"] \
+            or meta["num_items"] != exported.shape[0] or meta["source"] != str(ckpt):
+        raise AssertionError(f"export of {ckpt}: metadata {meta}")
+    if not 0.0 <= meta["scorer_validation_max_diff"] <= EXPORT_VALIDATION_LIMIT:
+        raise AssertionError(f"export of {ckpt}: scorer check {meta['scorer_validation_max_diff']}")
+    return {"seconds": seconds, "rows": exported.shape[0], "catalog": catalog,
+            "phantom_rows": exported.shape[0] - catalog, "mb": exported.nbytes / 1e6,
+            **{k: meta[k] for k in ("model_name", "epoch", "best_val_metric", "scorer_validation_max_diff",
+                                    "scoring_latency_ms", "onnx_exported")}}
+
+
+def export_demo(out: Path) -> dict:
+    """export_onnx --mode demo at the full catalog: the table default_rng(42) draws."""
+    t0 = time.perf_counter()
+    meta = export_onnx.main(["--mode", "demo", "--num-items", str(NUM_ITEMS), "--output-dir", str(out)])
+    seconds = time.perf_counter() - t0
+    want = np.random.default_rng(42).standard_normal((NUM_ITEMS, DIM)).astype(np.float32)
+    if np.load(out / "item_embeddings.npy").tobytes() != want.tobytes() or list(meta) != EXPORT_KEYS["demo"] or \
+            meta["scorer_validation_max_diff"] > EXPORT_VALIDATION_LIMIT:
+        raise AssertionError(f"demo export: the table or the metadata differ: {meta}")
+    return {"seconds": seconds, "rows": NUM_ITEMS, "mb": want.nbytes / 1e6,
+            **{k: meta[k] for k in ("scorer_validation_max_diff", "scoring_latency_ms")}}
+
+
+def vertex_on_export(export_dir: Path) -> dev_app.MeanEmbeddingModel:
+    """The Vertex-style server's model as it starts with MODEL_DIR=export_dir
+    (INFERENCE_MODE=embeddings: item_embeddings.npy), its table on the card
+    EQUAL to the file's (not the demo table it would fall back to)."""
+    saved = vertex_app.MODEL_DIR, vertex_app.INFERENCE_MODE
+    vertex_app.MODEL_DIR, vertex_app.INFERENCE_MODE = export_dir, "embeddings"
+    try:
+        model = vertex_app.load_model("cuda")
+    finally:
+        vertex_app.MODEL_DIR, vertex_app.INFERENCE_MODE = saved
+    if not torch.equal(model.item_embeddings.cpu(), torch.from_numpy(np.load(export_dir / "item_embeddings.npy"))):
+        raise AssertionError(f"the Vertex server did not load {export_dir}/item_embeddings.npy")
+    return model
+
+
+def predictions(model: dev_app.MeanEmbeddingModel, instances: list[dict]) -> tuple[list, float, dict]:
+    """POST /predict of the Vertex-style server on `model` over HTTP: each
+    instance's (ids, scores), the call's ms and GET /health."""
+    with serving(vertex_app.make_server(model, "127.0.0.1", 0)) as url:
+        status, body, _ = get(f"{url}/health")
+        health = json.loads(body)
+        status_p, payload, ms = post(f"{url}/predict", {"instances": instances})
+    if status != 200 or status_p != 200 or len(payload["predictions"]) != len(instances):
+        raise AssertionError(f"vertex /predict: {status} {status_p} {str(payload)[:300]}")
+    return [(p["recommendations"], p["scores"]) for p in payload["predictions"]], ms, health
+
+
+def export_and_serve(quick_ckpt: Path, vertex_answers: list, workdir: Path) -> dict:
+    """(a) the export of phase 13 (b)'s checkpoint_best, timed, and a demo
+    export at the full catalog; (b) the Vertex-style server with MODEL_DIR
+    on the export answers phase 14's requests through /predict as the server
+    built from the checkpoint (phase 14's construction) does, EQUAL; and on
+    the export of phase 4's checkpoint (written again from the same seeds)
+    as phase 14's own server answered, EQUAL."""
+    out: dict = {}
+    out["export"] = export_production(quick_ckpt, workdir / "quickstart_export")
+    log(f"[phase 17] export_onnx --mode production {json.dumps(out['export'])}")
+    out["export_demo"] = export_demo(workdir / "demo_export")
+    shutil.rmtree(workdir / "demo_export")
+    log(f"[phase 17] export_onnx --mode demo --num-items {NUM_ITEMS} {json.dumps(out['export_demo'])}")
+
+    instances = [{"session_items": r.session_items, "k": r.k}
+                 for r in latency_bench.make_requests(NUM_ITEMS, SERVER_REQUESTS)]
+    served = vertex_on_export(workdir / "quickstart_export")
+    got, ms, health = predictions(served, instances)
+    want, _, _ = predictions(dev_app.MeanEmbeddingModel.from_checkpoint(str(quick_ckpt), device="cuda"), instances)
+    if got != want:
+        raise AssertionError("the Vertex server on the export answers otherwise than on the checkpoint")
+    catalog = out["export"]["catalog"]
+    phantom_only, _, _ = predictions(served, [{"session_items": [catalog + 1], "k": 5}])
+    out["served_export"] = {"instances": len(instances), "equal_to_checkpoint_server": True, "predict_ms": ms,
+                            "health": health,
+                            "phantom_ids_answered": sum(i >= catalog for ids, _ in got for i in ids),
+                            "phantom_only_session": phantom_only[0]}
+    log(f"[phase 17] Vertex server on MODEL_DIR={workdir / 'quickstart_export'} {json.dumps(out['served_export'])}")
+    del served
+    torch.cuda.empty_cache()
+
+    make_checkpoint(workdir / "ckpt")
+    out["export_phase4"] = export_production(workdir / "ckpt", workdir / "phase4_export")
+    got4, ms4, _ = predictions(vertex_on_export(workdir / "phase4_export"), instances)
+    if got4 != vertex_answers:
+        raise AssertionError("the Vertex server on phase 4's export answers otherwise than phase 14's server")
+    out["served_phase4_export"] = {"instances": len(instances), "equal_to_phase_14": True, "predict_ms": ms4}
+    log(f"[phase 17] phase 4's checkpoint exported and served: {json.dumps(out['export_phase4'])} "
+        f"{json.dumps(out['served_phase4_export'])}")
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def drawn_on_the_cpu(module):
+    """`module.create_model` filling each model with the weights the CPU's
+    generator draws for it (a CUDA generator draws another stream), so a
+    run on the card starts where the script's CPU run starts."""
+    create = module.create_model
+
+    def build(name, num_items, device=None, **kwargs):
+        model = create(name, num_items, device=device, **kwargs)
+        model.load_state_dict(create(name, num_items, device="cpu", **kwargs).state_dict())
+        return model
+
+    module.create_model = build
+    try:
+        yield
+    finally:
+        module.create_model = create
+
+
+def tracked_runs(workdir: Path) -> tuple[dict, dict]:
+    """(c) mlflow_experiment for each model on the card, counted (per dense
+    step 1 dense AdamW, and node dropout and kernel 1 as the model's layers
+    take them), then the same script on the CPU: the run.json params equal,
+    the losses finite and, the card's run starting from the CPU run's
+    weights (drawn_on_the_cpu; the dropout bits are the same on both), within
+    MLFLOW_LOSS_RTOL."""
+    card_dir, cpu_dir = workdir / "mlruns_card", workdir / "mlruns_cpu"
+    steps = MLFLOW_EPOCHS * MLFLOW_BATCHES
+    launches, seconds = {}, {}
+    if list(MLFLOW_PER_STEP) != list(mlflow_experiment.MODEL_REGISTRY):
+        raise AssertionError("MLFLOW_PER_STEP does not name the script's models")
+    for name, (dropouts, layers) in MLFLOW_PER_STEP.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with drawn_on_the_cpu(mlflow_experiment):
+            mlflow_experiment.main(["--models", name, "--epochs", str(MLFLOW_EPOCHS),
+                                    "--tracking-dir", str(card_dir)])
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = expect_counts(f"mlflow_experiment {name}", embedding_adamw=steps,
+                                       node_dropout=dropouts * steps, session_attention=layers * steps,
+                                       session_attention_backward=layers * steps)
+    t0 = time.perf_counter()
+    mlflow_experiment.main(["--epochs", str(MLFLOW_EPOCHS), "--tracking-dir", str(cpu_dir), "--device", "cpu"])
+    cpu_seconds = time.perf_counter() - t0
+
+    def run_of(root: Path, name: str) -> dict:
+        (path,) = (root / "session-recommendation").glob(f"{name}-*/run.json")
+        return json.loads(path.read_text())
+
+    runs = {}
+    for name in MLFLOW_PER_STEP:
+        card, cpu = run_of(card_dir, name), run_of(cpu_dir, name)
+        got, want = ([m["value"] for m in r["metrics"]["train_loss"]] for r in (card, cpu))
+        if card["params"] != cpu["params"] or len(got) != MLFLOW_EPOCHS or not np.all(np.isfinite(got)):
+            raise AssertionError(f"mlflow_experiment {name}: card {card['params']} {got}, cpu {cpu['params']} {want}")
+        runs[name] = {"num_params": int(card["params"]["num_params"]), "card_train_loss": got,
+                      "cpu_train_loss": want,
+                      "max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+                      "card_s": seconds[name]}
+    off = {name: r["max_rel_diff"] for name, r in runs.items() if r["max_rel_diff"] > MLFLOW_LOSS_RTOL}
+    if off:
+        raise AssertionError(f"mlflow_experiment: card losses off the CPU run's beyond {MLFLOW_LOSS_RTOL}: {off}")
+    total = {k: sum(c[k] for c in launches.values()) for k in launch_counts()}
+    return {"runs": runs, "cpu_s": cpu_seconds, "launches_by_model": launches}, total
+
+
+def export_serve_track(gen: torch.Generator, quick_ckpt: Path, vertex_answers: list) -> tuple[dict, dict]:
+    """Phase 17: (a) and (b) export_and_serve, (c) tracked_runs with the
+    kernels checked at that path's shapes (B = 16, N = 8, widths 32), (d) the
+    repair child beside (c)."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        out.update(export_and_serve(quick_ckpt, vertex_answers, workdir))
+        child = start_repair_child(workdir)  # its start-up beside (c), which times nothing that matters here
+        out["tracked"], launches = tracked_runs(workdir)
+        log(f"[phase 17] mlflow_experiment, card against CPU {json.dumps(out['tracked'])}")
+        out["repair"] = repair_result(child)
+        log(f"[phase 17] the first Trainer of a process, dropped with gc off: {json.dumps(out['repair'])}")
+    out["attention"] = [check_attention_training(MLFLOW_BATCH, SMOKE_NODES, DROPOUT, gen, heads=h, dim=SMOKE_DIM,
+                                                 packed=True) for h in SMOKE_HEADS]
+    out["dropout"] = [check_node_dropout(gen, (MLFLOW_BATCH, *shape[1:])) for shape in SMOKE_DROPOUT_SHAPES]
+    for name, row in (*((f"session_attention {part}", r) for a in out["attention"] for part, r in a.items()),
+                      *(("node_dropout", r) for r in out["dropout"])):
+        log(f"[phase 17] mlflow_experiment shapes: {name} {json.dumps(row)}")
+    log(f"[phase 17] launches on the mlflow_experiment path {json.dumps(launches)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 17] took {out['seconds']:.1f} s")
     return out, launches
 
 
@@ -4013,7 +4326,7 @@ def main() -> int:
 
     # Phase 14: what serving still lacked
     torch.cuda.empty_cache()
-    _, rest_launches = serving_rest(torch.Generator(device="cuda").manual_seed(14))
+    rest, rest_launches = serving_rest(torch.Generator(device="cuda").manual_seed(14))
 
     # Phase 15: the study and tool scripts, and the packed adjacency
     torch.cuda.empty_cache()
@@ -4026,14 +4339,20 @@ def main() -> int:
     study, study_launches = studies_and_packing(torch.Generator(device="cuda").manual_seed(15),
                                                 Path(quick_dir.name) / "data" / "processed", bench_results,
                                                 counted)
-    quick_dir.cleanup()
 
     # Phase 16: the mesh (B1 at full width, the 1x1 NCCL mesh's Trainers, the bench over it)
     torch.cuda.empty_cache()
     meshed, mesh_launches = mesh_phase(torch.Generator(device="cuda").manual_seed(16), epoch)
     b1_main = with_shapes(meshed["b1"]["f32"][0], *meshed["b1"]["f32"][1:], *meshed["b1"]["bf16+sr"])
 
-    # Phase 17: one row per kernel and path, every key in every row.
+    # Phase 17: the Quickstart's export step and its server, the tracked runs, the repair
+    torch.cuda.empty_cache()
+    tracked, tracked_launches = export_serve_track(torch.Generator(device="cuda").manual_seed(17),
+                                                   Path(quick_dir.name) / EXPORTED_CHECKPOINT,
+                                                   rest["vertex_answers"])
+    quick_dir.cleanup()
+
+    # Phase 18: one row per kernel and path, every key in every row.
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -4151,6 +4470,12 @@ def main() -> int:
         *((name, "mesh", lazy_rows[(name, "f32")], mesh_launches[name])
           for name in ("lazy_gather_catch_up", "lazy_touched_update", "lazy_materialize")),
         ("node_dropout", "mesh", dropout_row, mesh_launches["node_dropout"]),
+        # Phase 17: mlflow_experiment's dense steps over the four models (B = 16, N = 8,
+        # widths 32; the table [512, 32] as the smoke entry's).
+        ("embedding_adamw", "mlflow_experiment", smoke_adamw, tracked_launches["embedding_adamw"]),
+        ("node_dropout", "mlflow_experiment", with_shapes(*tracked["dropout"]), tracked_launches["node_dropout"]),
+        *((part, "mlflow_experiment", with_shapes(*(a[key] for a in tracked["attention"])), tracked_launches[part])
+          for part, key in (("session_attention", "forward"), ("session_attention_backward", "backward"))),
     ):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the {path} path")
@@ -4159,7 +4484,7 @@ def main() -> int:
         counts = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                   "training_chained": chained_launches, "bench_e2e": bench_launches,
                   "latency_bench": latency_launches, **zoo_launches, **quick_launches, **rest_launches,
-                  **study_launches, "mesh": mesh_launches}[path]
+                  **study_launches, "mesh": mesh_launches, "mlflow_experiment": tracked_launches}[path]
         n_batch = None if batch is None else counts[f"{name}_{batch}"]
         kernels.append({
             "name": name,

@@ -3,8 +3,13 @@
 Routes and status codes: ``GET /health``; ``POST /recommend`` answers 503
 when no model is loaded, 422 when validation fails, 400 on a body that is
 not JSON; 404 for any other route. The route logic is the transport-free
-``handle_request``; the transport is the stdlib ``ThreadingHTTPServer``
-(``python -m gat_recommendation_torch.serving.app``).
+``handle_request``, behind two transports:
+
+  * the stdlib ``ThreadingHTTPServer``
+    (``python -m gat_recommendation_torch.serving.app``);
+  * a FastAPI app from ``create_app()`` where fastapi is installed
+    (``uvicorn gat_recommendation_torch.serving.app:app``; ``app`` is None
+    without fastapi, which is imported only inside ``create_app``).
 """
 
 from __future__ import annotations
@@ -81,6 +86,49 @@ def handle_request(method: str, path: str, body: dict | None) -> tuple[int, dict
 
     return 404, {"detail": f"no route {method} {path}"}
 
+
+# ---------------------------------------------------------------------------
+# FastAPI transport (optional)
+# ---------------------------------------------------------------------------
+
+def create_app():
+    """The FastAPI app over ``handle_request`` (requires fastapi): the default
+    recommender loaded on start-up and dropped on shutdown."""
+    from contextlib import asynccontextmanager
+
+    from fastapi import FastAPI, HTTPException, Request
+
+    @asynccontextmanager
+    async def lifespan(_app):
+        load_default_recommender()
+        yield
+        _state["recommender"] = None
+
+    app = FastAPI(title="Session Recommendation API", version="2.0.0", lifespan=lifespan)
+
+    @app.get("/health")
+    def health():
+        return handle_request("GET", "/health", None)[1]
+
+    @app.post("/recommend")
+    async def recommend(request: Request):
+        status, payload = handle_request("POST", "/recommend", await request.json())
+        if status != 200:
+            raise HTTPException(status_code=status, detail=payload.get("detail"))
+        return payload
+
+    return app
+
+
+try:  # `app` for uvicorn where fastapi is installed
+    app = create_app()
+except ImportError:
+    app = None
+
+
+# ---------------------------------------------------------------------------
+# Stdlib transport
+# ---------------------------------------------------------------------------
 
 def make_server(host: str = "127.0.0.1", port: int = 0, load_model: bool = True):
     """Build (but don't start) the stdlib server; port 0 picks a free port."""

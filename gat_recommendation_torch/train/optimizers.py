@@ -44,6 +44,14 @@ a captured graph holds its addresses.
 from __future__ import annotations
 
 import torch
+
+# The first torch.optim optimizer of a process imports torch._dynamo, and a
+# call made during that import (torch.fx.wrap) keeps its own frame in a
+# reference cycle, and with it every frame above it: the function that built
+# the optimizer, and the model that function holds, would stay alive (on the
+# card too) until a full collection. Imported here, the frames kept are this
+# module's import.
+import torch._dynamo  # noqa: F401
 from torch import nn
 
 from gat_recommendation_torch.ops import lazy_adamw
