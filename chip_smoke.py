@@ -132,7 +132,10 @@ Phases, each fatal on failure (nothing is caught and carried on):
      default corpus graph (precompute_pe, seconds) and one request of the
      optimized Graph Transformer with it against a CPU copy; the port's
      smoke_test_all_models, its main() counted in this process and
-     ``python3 -m`` in a child, which must exit 0.
+     ``python3 -m`` in a child, which must exit 0. First of all, every model
+     of the registry at full width drawn from seed 0 of a CPU generator on
+     the card and on the CPU, and a seeded Trainer.init_state() over the main
+     path's model on both: the states EQUAL bit for bit, each draw's seconds.
  13. the Quickstart on the card, through the port's entry points, in a
      temporary directory: (a) corpus v3 regenerated from data_refscale/
      MANIFEST.json by the port's pandas-free pipeline (scripts.data.
@@ -240,15 +243,17 @@ Phases, each fatal on failure (nothing is caught and carried on):
      phantom ids answered, and a session of one phantom id, printed); (c)
      scripts.pipeline.mlflow_experiment for each of the four models on the
      card (2 epochs, counted: per dense step 1 dense AdamW; node dropout
-     and kernel 1 as the model's layers take them), from the CPU run's
-     weights, against the script's CPU run: params equal, losses finite and
+     and kernel 1 as the model's layers take them), from the script's own
+     seed (weights drawn on the host, so the card's run starts from the CPU
+     run's weights), against the script's CPU run: params equal, losses finite and
      within MLFLOW_LOSS_RTOL; kernel 1 and node dropout at that path's
      shapes (B = 16, N = 8) against their plain versions; (d) beside (c), a
      child process (collector off) builds a full-width lazy Trainer inside a
      function and drops it, twice: memory_allocated back to its level
      before each build, the MiB freed printed.
- 18. a JSON line of every kernel's numbers, then the nvidia-smi line, then
-     {"ok": true, "device": {...}} as the last line.
+ 18. a JSON line of each phase's seconds, a JSON line of every kernel's
+     numbers, then the nvidia-smi line, then {"ok": true, "device": {...}}
+     as the last line.
 
 Exits nonzero without a CUDA device, and without the package beside it.
 """
@@ -288,7 +293,7 @@ from gat_recommendation_torch.data.batching import (
 from gat_recommendation_torch.data.csv_io import read_csv
 from gat_recommendation_torch.data.graph import build_co_event_graph, load_edges
 from gat_recommendation_torch.models.base import padded_rows
-from gat_recommendation_torch.models.registry import create_model
+from gat_recommendation_torch.models.registry import MODEL_NAMES, create_model
 from gat_recommendation_torch.ops import _build, step_block
 from gat_recommendation_torch.ops.embedding_adamw import (
     embedding_adamw,
@@ -456,6 +461,21 @@ _START = time.perf_counter()
 def log(msg: str) -> None:
     """A line of the run, after the seconds since the script started."""
     print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
+
+
+_PHASE_STARTS: dict[str, float] = {}
+
+
+def phase(name: str) -> None:
+    """Mark the start of phase `name` (it ends where the next one starts)."""
+    _PHASE_STARTS[name] = time.perf_counter()
+
+
+def phase_seconds() -> dict[str, float]:
+    """The seconds of each phase so far, the last one up to now."""
+    names = list(_PHASE_STARTS)
+    ends = [_PHASE_STARTS[n] for n in names[1:]] + [time.perf_counter()]
+    return {n: end - _PHASE_STARTS[n] for n, end in zip(names, ends)}
 
 
 def nvidia_smi() -> str:
@@ -1506,16 +1526,37 @@ def make_dataset(rng: np.random.Generator, sessions: int = NUM_SESSIONS) -> Sess
     )
 
 
+# The state of each model the phases build from seed 0, drawn once on the CPU
+# and loaded into every later build of it, on either device: a full-width
+# table is 119.5 M numbers drawn by one host thread (about 0.8 s), and the
+# phases build the same model dozens of times. create_model's draw on the card
+# is the same bits (phase 12, seeded_weights_on_card_and_cpu).
+_SEEDED_STATES: dict = {}
+
+
+def make_seeded_model(name: str, fields: dict, dropout: float, device=None):
+    """A model of the registry at full width (each factory's defaults but
+    `fields`) from seed 0 of a CPU generator, with random positional
+    encodings drawn next from it where the model has them; on the card unless
+    told otherwise."""
+    key = (name, tuple(sorted(fields.items())))
+    if key not in _SEEDED_STATES:
+        gen = torch.Generator().manual_seed(0)
+        model = create_model(name, NUM_ITEMS, device="cpu", generator=gen, **fields)
+        if model.uses_laplacian_pe:
+            with torch.no_grad():
+                model.cached_pe.normal_(generator=gen)
+                model.cached_pe[NUM_ITEMS:] = 0.0
+        _SEEDED_STATES[key] = model.state_dict()
+    model = create_model(name, NUM_ITEMS, dropout=dropout, device="meta", **fields)
+    model.to_empty(device="cuda" if device is None else device)
+    model.load_state_dict(_SEEDED_STATES[key])
+    return model
+
+
 def make_training_model(dropout: float, device=None):
     """The optimized Graph Transformer at full width, seeded; on the card unless told otherwise."""
-    dev = torch.device("cuda" if device is None else device)
-    gen = torch.Generator(dev).manual_seed(0)
-    model = create_model("graph_transformer_optimized", NUM_ITEMS, dropout=dropout, device=device,
-                         generator=gen)
-    with torch.no_grad():
-        model.cached_pe.normal_(generator=gen)
-        model.cached_pe[NUM_ITEMS:] = 0.0
-    return model
+    return make_seeded_model("graph_transformer_optimized", {}, dropout, device)
 
 
 def launch_counts() -> dict:
@@ -1603,8 +1644,6 @@ def train_full_width(by_bucket: dict, epoch: list) -> dict:
     dev = torch.device("cuda")
     loss_fn = create_loss_function("dual")
     model = make_training_model(DROPOUT)
-    if model.item_embedding.device.type != "cuda":
-        raise AssertionError("create_model without a device must allocate on the card")
     torch.cuda.synchronize()
 
     # The counted main path: Trainer epoch (sparse), repeated-batch steps, dense
@@ -2452,18 +2491,49 @@ def with_shapes(row: dict, *others: dict) -> dict:
                                       for r in (row, *others)]}
 
 
-def make_zoo_model(name: str, fields: dict, dropout: float, device=None):
-    """A model of the registry at full width (each factory's defaults but
-    `fields`), seeded; random positional encodings where it has them (as
-    make_training_model); on the card unless told otherwise."""
-    dev = torch.device("cuda" if device is None else device)
-    gen = torch.Generator(dev).manual_seed(0)
-    model = create_model(name, NUM_ITEMS, dropout=dropout, device=device, generator=gen, **fields)
-    if model.uses_laplacian_pe:
-        with torch.no_grad():
-            model.cached_pe.normal_(generator=gen)
-            model.cached_pe[NUM_ITEMS:] = 0.0
-    return model
+def seeded_weights_on_card_and_cpu(workdir: Path) -> dict:
+    """Every model of the registry at full width (NUM_ITEMS, each factory's
+    defaults; the optimized Graph Transformer is the main path's model at
+    256/256), drawn from seed 0 of a CPU generator with no device (which
+    must be the card) and with device="cpu": the states EQUAL bit for bit,
+    each build's seconds (the draw is on the host: a 466,944 x 256 table is
+    119.5 M uniform numbers); then Trainer(seed=7).init_state() over the
+    main path's model on both, the states EQUAL again, and its seconds."""
+
+    def timed(make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        made = make()
+        torch.cuda.synchronize()
+        return made, time.perf_counter() - t0
+
+    def equal_states(card, cpu, what: str) -> int:
+        got, want = card.state_dict(), cpu.state_dict()
+        differ = [k for k in want if k not in got or not torch.equal(got[k].cpu(), want[k])]
+        if list(got) != list(want) or differ:
+            raise AssertionError(f"{what}: the card's seeded state differs from the CPU's at {differ or list(got)}")
+        return len(want)
+
+    out = {"host_threads": torch.get_num_threads(), "host_cpus": os.cpu_count(), "models": {}}
+    for name in MODEL_NAMES:
+        made = {"cuda": timed(lambda: create_model(name, NUM_ITEMS, generator=torch.Generator().manual_seed(0))),
+                "cpu": timed(lambda: create_model(name, NUM_ITEMS, device="cpu",
+                                                  generator=torch.Generator().manual_seed(0)))}
+        if made["cuda"][0].item_embedding.device.type != "cuda":
+            raise AssertionError("create_model without a device must allocate on the card")
+        out["models"][name] = {"state_tensors_equal": equal_states(made["cuda"][0], made["cpu"][0], name),
+                               "card_s": made["cuda"][1], "cpu_s": made["cpu"][1]}
+        if name != "graph_transformer_optimized":
+            del made
+            continue
+        for device, (model, _) in made.items():
+            trainer = Trainer(model, lambda e: iter(()), lambda: iter(()), output_dir=workdir / device, seed=7,
+                              device=device)
+            out[f"trainer_init_state_{device}_s"] = timed(trainer.init_state)[1]
+        out["trainer_state_tensors_equal"] = equal_states(made["cuda"][0], made["cpu"][0], "Trainer.init_state")
+        del made, model, trainer
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_zoo_model(label: str, name: str, fields: dict, node_dropouts: int, attention: int,
@@ -2481,7 +2551,7 @@ def train_zoo_model(label: str, name: str, fields: dict, node_dropouts: int, att
     loss_fn = create_loss_function("dual")
     max_nodes = ZOO_LSTM_MAX_NODES if fields.get("aggregator") == "lstm" else max(BUCKETS)
     batches = [b for b in epoch if b.nodes_per_session <= max_nodes]
-    make = lambda dropout, device=None: make_zoo_model(name, fields, dropout, device)  # noqa: E731
+    make = lambda dropout, device=None: make_seeded_model(name, fields, dropout, device)  # noqa: E731
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2538,7 +2608,7 @@ def zoo_chained_against_unchained(name: str, fields: dict, chain_epoch: list, wo
     batches = n8[:5] + [b for b in chain_epoch if b.nodes_per_session == 56][:1]
     runs = []
     for chain in (1, ZOO_CHAIN):
-        trainer = Trainer(make_zoo_model(name, fields, DROPOUT), lambda e: iter(batches), lambda: iter(n8[:4]),
+        trainer = Trainer(make_seeded_model(name, fields, DROPOUT), lambda e: iter(batches), lambda: iter(n8[:4]),
                           optimizer=FusedEmbeddingAdamW(1e-3, weight_decay=1e-5, lazy=True),
                           output_dir=workdir / f"{name}_chain_{chain}", max_epochs=1,
                           loss_fn=create_loss_function("dual"), seed=7, sparse_embedding_grads=True, chain=chain)
@@ -2613,7 +2683,7 @@ def pe_on_the_bench_graph(workdir: Path) -> dict:
     sid, ts, items = bench.corpus_columns(BENCH_GRAPH_SESSIONS, NUM_ITEMS)
     edges, _ = build_co_event_graph((sid, ts, items, "view"))
     graph_s = time.perf_counter() - t0
-    model = create_model("graph_transformer_optimized", NUM_ITEMS, generator=torch.Generator("cuda").manual_seed(0))
+    model = make_training_model(DROPOUT)
     t0 = time.perf_counter()
     model.precompute_pe(edges["item_i"], edges["item_j"])
     torch.cuda.synchronize()
@@ -4031,32 +4101,13 @@ def export_and_serve(quick_ckpt: Path, vertex_answers: list, workdir: Path) -> d
     return out
 
 
-@contextlib.contextmanager
-def drawn_on_the_cpu(module):
-    """`module.create_model` filling each model with the weights the CPU's
-    generator draws for it (a CUDA generator draws another stream), so a
-    run on the card starts where the script's CPU run starts."""
-    create = module.create_model
-
-    def build(name, num_items, device=None, **kwargs):
-        model = create(name, num_items, device=device, **kwargs)
-        model.load_state_dict(create(name, num_items, device="cpu", **kwargs).state_dict())
-        return model
-
-    module.create_model = build
-    try:
-        yield
-    finally:
-        module.create_model = create
-
-
 def tracked_runs(workdir: Path) -> tuple[dict, dict]:
     """(c) mlflow_experiment for each model on the card, counted (per dense
     step 1 dense AdamW, and node dropout and kernel 1 as the model's layers
     take them), then the same script on the CPU: the run.json params equal,
-    the losses finite and, the card's run starting from the CPU run's
-    weights (drawn_on_the_cpu; the dropout bits are the same on both), within
-    MLFLOW_LOSS_RTOL."""
+    the losses finite and within MLFLOW_LOSS_RTOL: both runs draw their
+    weights from the same default seed of a CPU generator, so they start
+    from the same weights, and the dropout bits are the same on both."""
     card_dir, cpu_dir = workdir / "mlruns_card", workdir / "mlruns_cpu"
     steps = MLFLOW_EPOCHS * MLFLOW_BATCHES
     launches, seconds = {}, {}
@@ -4066,9 +4117,7 @@ def tracked_runs(workdir: Path) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        with drawn_on_the_cpu(mlflow_experiment):
-            mlflow_experiment.main(["--models", name, "--epochs", str(MLFLOW_EPOCHS),
-                                    "--tracking-dir", str(card_dir)])
+        mlflow_experiment.main(["--models", name, "--epochs", str(MLFLOW_EPOCHS), "--tracking-dir", str(card_dir)])
         seconds[name] = time.perf_counter() - t0
         launches[name] = expect_counts(f"mlflow_experiment {name}", embedding_adamw=steps,
                                        node_dropout=dropouts * steps, session_attention=layers * steps,
@@ -4129,7 +4178,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
 
-    # Phase 1
+    phase("1")
     smi = nvidia_smi()
     log(f"[phase 1] {smi}")
     log(f"[phase 1] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4140,7 +4189,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("[phase 1] TF32 set off for matmul and cuDNN: every float32 product is full float32")
 
-    # Phase 2
+    phase("2")
     seconds = _build.build()
     log(f"[phase 2] kernels built in {seconds:.1f} s")
     for name in _build.KERNELS:
@@ -4154,7 +4203,7 @@ def main() -> int:
         if counts["fchk"]:
             raise AssertionError(f"{name}: the series loop still holds the IEEE division's check (FCHK): {counts}")
 
-    # Phase 3
+    phase("3")
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn = {(B, N): check_attention(B, N, gen) for B, N in [(1, n) for n in BUCKETS] + [(512, 56)]}
     for row in attn.values():
@@ -4174,14 +4223,14 @@ def main() -> int:
     check_crossover(scoring_crossover, "score_chunkmax")
     torch.cuda.empty_cache()
 
-    # Phase 4
+    phase("4")
     with tempfile.TemporaryDirectory() as tmp:
         served = serve_full_width(Path(tmp))
         latency, latency_launches = serving_latency(Path(tmp))
     profiled = served.pop("profile")
     log(f"[phase 4] {json.dumps(served)}")
 
-    # Phase 5
+    phase("5")
     n = served["requests"]
     launches = served["launches"]
     if launches["session_attention"] != 2 * n or launches["score_chunkmax"] != n:
@@ -4192,10 +4241,10 @@ def main() -> int:
         raise AssertionError(f"serving builds a bool adjacency; no launch may read packed rows: {launches}")
     log(f"[phase 5] launches over {n} requests: {json.dumps(launches)}")
 
-    # Phase 6
+    phase("6")
     log(f"[phase 6] {json.dumps(profiled)}")
 
-    # Phase 7
+    phase("7")
     gen = torch.Generator(device="cuda").manual_seed(1)
     train_attn = {}
     for N in BUCKETS:
@@ -4222,7 +4271,7 @@ def main() -> int:
             log(f"[phase 7] {name} {json.dumps(row)}")
         torch.cuda.empty_cache()
 
-    # Phase 8
+    phase("8")
     by_bucket, epoch = training_batches()
     trained = train_full_width(by_bucket, epoch)
     train_profile = trained.pop("profile")
@@ -4245,16 +4294,16 @@ def main() -> int:
     log(f"[phase 8] eager sparse groups of 4 against eager steps {json.dumps(eager_group)}")
     chained_launches = {**chained_trained["launches"], "sparse_adamw": eager_group["launches"]["sparse_adamw"]}
 
-    # Phase 9
+    phase("9")
     log(f"[phase 9] {json.dumps(train_profile)}")
     log(f"[phase 9] lazy {json.dumps(profile_lazy(create_loss_function('dual'), by_bucket))}")
     torch.cuda.empty_cache()
     log(f"[phase 9] chain {json.dumps(chain_timing(chain_epoch))}")
 
-    # Phase 10
+    phase("10")
     log(f"[phase 10] batch engines {json.dumps(batch_engines())}")
 
-    # Phase 11
+    phase("11")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         piped = pipelined_against_inline(chain_dataset, chain_val, chained_run, Path(tmp))
@@ -4270,6 +4319,7 @@ def main() -> int:
     log(f"[phase 11] launches: bench {json.dumps(bench_launches)}, latency bench {json.dumps(latency_launches)}")
 
     # Phase 12: the rest of the model zoo
+    phase("12")
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(3)
     attn_h4 = {N: check_attention_training(TRAIN_BATCH, N, DROPOUT, gen, heads=ZOO_HEADS, packed=True)
@@ -4289,6 +4339,8 @@ def main() -> int:
     for name, row in (*((f"session_attention {part}", r) for a in smoke_attn for part, r in a.items()),
                       *(("node_dropout", r) for r in smoke_dropout), ("embedding_adamw", smoke_adamw)):
         log(f"[phase 12] smoke shapes: {name} {json.dumps(row)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[phase 12] seeded weights, card against CPU {json.dumps(seeded_weights_on_card_and_cpu(Path(tmp)))}")
     zoo, zoo_serving = {}, {}
     for label, name, fields, node_dropouts, attention in ZOO:  # each model's checkpoints go with its directory
         with tempfile.TemporaryDirectory() as tmp:
@@ -4311,6 +4363,7 @@ def main() -> int:
     zoo_launches["zoo_smoke"] = smoke["launches"]
 
     # Phase 13: the Quickstart on the card, in a directory that phase 15 reads too
+    phase("13")
     torch.cuda.empty_cache()
     quick_dir = tempfile.TemporaryDirectory()
     quick = quickstart(torch.Generator(device="cuda").manual_seed(13), series_sass, Path(quick_dir.name))
@@ -4325,10 +4378,12 @@ def main() -> int:
     }
 
     # Phase 14: what serving still lacked
+    phase("14")
     torch.cuda.empty_cache()
     rest, rest_launches = serving_rest(torch.Generator(device="cuda").manual_seed(14))
 
     # Phase 15: the study and tool scripts, and the packed adjacency
+    phase("15")
     torch.cuda.empty_cache()
     counted = {"serving": launches, "training": train_launches, "training_lazy": lazy_launches,
                "training_chained": chained_launches, "bench_e2e": bench_launches, "latency_bench": latency_launches,
@@ -4341,11 +4396,13 @@ def main() -> int:
                                                 counted)
 
     # Phase 16: the mesh (B1 at full width, the 1x1 NCCL mesh's Trainers, the bench over it)
+    phase("16")
     torch.cuda.empty_cache()
     meshed, mesh_launches = mesh_phase(torch.Generator(device="cuda").manual_seed(16), epoch)
     b1_main = with_shapes(meshed["b1"]["f32"][0], *meshed["b1"]["f32"][1:], *meshed["b1"]["bf16+sr"])
 
     # Phase 17: the Quickstart's export step and its server, the tracked runs, the repair
+    phase("17")
     torch.cuda.empty_cache()
     tracked, tracked_launches = export_serve_track(torch.Generator(device="cuda").manual_seed(17),
                                                    Path(quick_dir.name) / EXPORTED_CHECKPOINT,
@@ -4353,6 +4410,7 @@ def main() -> int:
     quick_dir.cleanup()
 
     # Phase 18: one row per kernel and path, every key in every row.
+    phase("18")
     kernels = []
     for name, path, row, count in (
         ("session_attention", "serving", attn[(1, 56)], launches["session_attention"]),
@@ -4506,6 +4564,7 @@ def main() -> int:
             "launch_floor_ms": row.get("launch_floor_ms"),
             "shapes_checked": row.get("shapes_checked"),
         })
+    print(json.dumps({"phase_seconds": phase_seconds(), "total_s": time.perf_counter() - _START}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

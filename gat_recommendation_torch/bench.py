@@ -110,7 +110,7 @@ def make_training(num_items: int = NUM_ITEMS, bf16_moments=None, lazy: bool = Fa
     ones."""
     device = resolve_device(device)
     model = create_model("graph_transformer_optimized", num_items, embedding_dim=256, hidden_dim=256,
-                         device=device, generator=torch.Generator(device).manual_seed(0))
+                         device=device, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         model.cached_pe.zero_()
     moment_dtype = {None: None, "both": torch.bfloat16, "mu": (torch.bfloat16, None),

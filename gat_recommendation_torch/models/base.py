@@ -5,7 +5,9 @@ the full-catalog ``predict_topk`` and the BPR loss on embeddings.
 Linear layers are ``nn.Linear`` (weight ``[out, in]``, apply ``x @ W.T + b``);
 the JAX package stores ``w`` as ``[in, out]`` and ``convert.py`` transposes.
 Initial values follow the JAX package's distributions, drawn from an
-explicit ``torch.Generator`` (the numbers differ from JAX's for one seed).
+explicit CPU ``torch.Generator`` and copied onto the model's device, so one
+seed gives the same weights on every device, as one JAX key does on every
+backend (the numbers differ from JAX's for one seed).
 """
 
 from __future__ import annotations
@@ -38,20 +40,81 @@ def padded_rows(num_items: int, multiple: int = TABLE_PAD_MULTIPLE) -> int:
     return -(-num_items // multiple) * multiple
 
 
+# A table not drawn in place (one off the CPU, or a row shard) is drawn in
+# chunks of whole rows of about this many bytes, into one reused host buffer.
+DRAW_CHUNK_BYTES = 64 << 20
+
+
+def check_cpu_generator(generator: torch.Generator) -> None:
+    """Weights come from a CPU generator: a CUDA generator draws another
+    stream than a CPU one, so the weights would depend on the device."""
+    if generator.device.type != "cpu":
+        raise ValueError(
+            f"weights are drawn from a CPU torch.Generator (then copied to the model's device), so that "
+            f"one seed gives the same weights on every device; got a generator on {generator.device}")
+
+
+@torch.no_grad()
+def draw_uniform_(tensor: torch.Tensor, low: float, high: float, generator: torch.Generator) -> None:
+    """Fill `tensor` with U(low, high) from the CPU `generator`. A CPU tensor
+    is drawn in place; any other gets a host tensor of its shape and strides,
+    drawn the same way and copied over, so the bits do not depend on the
+    device. Nothing is drawn on the "meta" device."""
+    check_cpu_generator(generator)
+    if tensor.device.type == "meta":
+        return
+    if tensor.device.type == "cpu":
+        tensor.uniform_(low, high, generator=generator)
+    else:
+        tensor.copy_(torch.empty_like(tensor, device="cpu").uniform_(low, high, generator=generator))
+
+
+@torch.no_grad()
+def draw_rows_uniform_(
+    table: torch.Tensor, low: float, high: float, generator: torch.Generator,
+    total_rows: int | None = None, first_row: int = 0,
+) -> None:
+    """Fill the [rows, D] `table`, which holds rows ``[first_row, first_row +
+    rows)`` of a [total_rows, D] draw of U(low, high) from the CPU
+    `generator`: the whole draw is made, so the generator ends where one draw
+    of the whole leaves it. A CPU table that is the whole is drawn in place;
+    otherwise the draw goes in chunks of whole rows (about DRAW_CHUNK_BYTES),
+    in order, into one reused host buffer (pinned for a card), and each
+    chunk's rows that `table` holds are copied over. Chunks of whole rows in
+    order consume the generator as one draw does, so the bits are those of
+    the one-piece draw."""
+    check_cpu_generator(generator)
+    rows, dim = table.shape
+    total_rows = rows if total_rows is None else total_rows
+    if table.device.type == "meta":
+        return
+    if table.device.type == "cpu" and (first_row, total_rows) == (0, rows):
+        table.uniform_(low, high, generator=generator)
+        return
+    chunk_rows = min(max(1, DRAW_CHUNK_BYTES // max(1, dim * table.element_size())), total_rows)
+    buffer = torch.empty(chunk_rows, dim, dtype=table.dtype, pin_memory=table.device.type == "cuda")
+    for lo in range(0, total_rows, chunk_rows):
+        n = min(chunk_rows, total_rows - lo)
+        drawn = buffer[:n].uniform_(low, high, generator=generator)
+        a, b = max(lo, first_row), min(lo + n, first_row + rows)
+        if a < b:
+            table[a - first_row:b - first_row].copy_(drawn[a - lo:b - lo])
+
+
 @torch.no_grad()
 def init_torch_linear(layer: nn.Linear, generator: torch.Generator) -> None:
     """torch.nn.Linear default init: weight and bias ~ U(±1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(layer.in_features) if layer.in_features > 0 else 0.0
-    layer.weight.uniform_(-bound, bound, generator=generator)
+    draw_uniform_(layer.weight, -bound, bound, generator)
     if layer.bias is not None:
-        layer.bias.uniform_(-bound, bound, generator=generator)
+        draw_uniform_(layer.bias, -bound, bound, generator)
 
 
 @torch.no_grad()
 def init_xavier_linear(layer: nn.Linear, generator: torch.Generator) -> None:
     """xavier_uniform weight + zero bias (attention readout, LapPE projection)."""
     a = math.sqrt(6.0 / (layer.in_features + layer.out_features))
-    layer.weight.uniform_(-a, a, generator=generator)
+    draw_uniform_(layer.weight, -a, a, generator)
     if layer.bias is not None:
         layer.bias.zero_()
 
@@ -62,20 +125,23 @@ def init_glorot(tensor: torch.Tensor, generator: torch.Generator) -> None:
     sizes, so an ``nn.Linear`` weight ``[out, in]`` draws from the bound of
     the JAX package's ``[in, out]``."""
     a = math.sqrt(6.0 / (tensor.shape[-2] + tensor.shape[-1]))
-    tensor.uniform_(-a, a, generator=generator)
+    draw_uniform_(tensor, -a, a, generator)
 
 
 @torch.no_grad()
 def init_item_embedding(
-    table: torch.Tensor, num_items: int, generator: torch.Generator
+    table: torch.Tensor, num_items: int, generator: torch.Generator, first_row: int = 0,
+    total_rows: int | None = None,
 ) -> None:
     """Fill the [padded(num_items), D] table in place: row 0 (padding) zero,
     rows 1:num_items xavier_uniform with a = sqrt(6 / (num_items - 1 + D)),
-    phantom tail rows zero."""
+    phantom tail rows zero. A row shard passes its `first_row` and the whole
+    table's `total_rows`, and takes its rows of the whole table's draw."""
     a = math.sqrt(6.0 / (num_items - 1 + table.shape[1]))
-    table.uniform_(-a, a, generator=generator)
-    table[0] = 0.0
-    table[num_items:] = 0.0
+    draw_rows_uniform_(table, -a, a, generator, total_rows, first_row)
+    if first_row == 0:
+        table[0] = 0.0
+    table[max(num_items - first_row, 0):] = 0.0
 
 
 def mask_phantom(scores: torch.Tensor, num_items: int | None) -> torch.Tensor:
@@ -189,7 +255,9 @@ class SessionModel(nn.Module):
 
     Parameters are allocated on `device` (``cuda`` when None, which raises
     without a CUDA device; the CPU only for ``device="cpu"``) and drawn from
-    `generator` (a ``torch.Generator`` on that device; seed 0 when omitted).
+    `generator`, a CPU ``torch.Generator`` (seed 0 when omitted; one on
+    another device raises): the draws are made on the host and copied, so the
+    weights do not depend on the device.
     On the "meta" device nothing is drawn: load real tensors with
     ``load_state_dict(..., assign=True)``, as the serving checkpoint loader does.
 
@@ -217,23 +285,15 @@ class SessionModel(nn.Module):
 
     def _draw(self, generator: torch.Generator | None) -> None:
         if self.item_embedding.device.type != "meta":
-            if generator is None:
-                generator = torch.Generator(self.item_embedding.device).manual_seed(0)
-            self.reset_parameters(generator)
+            self.reset_parameters(torch.Generator().manual_seed(0) if generator is None else generator)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from `generator`; BatchNorm starts at identity.
-        A row shard of the table takes its rows of the whole table's draw, so
-        every rank draws what one GPU draws."""
-        table = self.item_embedding
-        rows = padded_rows(self.config.num_items)
-        if table.shape[0] == rows:
-            init_item_embedding(table, self.config.num_items, generator)
-        else:
-            whole = table.new_empty(rows, table.shape[1])
-            init_item_embedding(whole, self.config.num_items, generator)
-            with torch.no_grad():
-                table.copy_(whole[self.table_offset:self.table_offset + table.shape[0]])
+        """Draw every parameter from the CPU `generator`; BatchNorm starts at
+        identity. A row shard of the table takes its rows of the whole table's
+        draw (drawn on the host in chunks, only its rows copied over), so every
+        rank draws what one GPU draws."""
+        init_item_embedding(self.item_embedding, self.config.num_items, generator, self.table_offset,
+                            padded_rows(self.config.num_items))
         if self.readout is not None:
             init_xavier_linear(self.readout, generator)
         self._reset_layers(generator)

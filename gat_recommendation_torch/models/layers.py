@@ -28,7 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from gat_recommendation_torch.models.base import init_glorot, init_torch_linear
+from gat_recommendation_torch.models.base import draw_uniform_, init_glorot, init_torch_linear
 from gat_recommendation_torch.ops.masked import masked_softmax
 from gat_recommendation_torch.ops.node_dropout import node_dropout
 from gat_recommendation_torch.ops.session_attention import session_attention
@@ -152,7 +152,7 @@ class LSTMAggregator(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.weight_hh.shape[1])
         for t in (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh):
-            t.uniform_(-bound, bound, generator=generator)
+            draw_uniform_(t, -bound, bound, generator)
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         """x: [B, N, D]; adj: [B, N, N] bool (adj[b, i, j]: j is a source of i). Returns [B, N, D]."""

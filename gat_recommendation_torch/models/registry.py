@@ -29,7 +29,10 @@ def create_model(name: str, num_items: int, **kwargs) -> SessionModel:
     """Build a model by name; kwargs are the config fields plus `device` and
     `generator`. The model is allocated on ``cuda`` unless the caller passes
     `device` (``"cpu"``, or ``"meta"`` for a module that a checkpoint fills);
-    without a CUDA device the default raises."""
+    without a CUDA device the default raises. `generator` is a CPU
+    ``torch.Generator`` (seed 0 when omitted; one on another device raises):
+    the weights are drawn on the host and copied, so they do not depend on
+    the device."""
     if name not in _FACTORIES:
         raise ValueError(f"Unknown model: {name} (expected one of {MODEL_NAMES})")
     return _FACTORIES[name](num_items, **kwargs)

@@ -86,7 +86,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     dev = torch.device("cuda")
 
     model = create_model("graph_transformer_optimized", num_items=args.num_items, embedding_dim=DIM,
-                         hidden_dim=DIM, device=dev, generator=torch.Generator(dev).manual_seed(0))
+                         hidden_dim=DIM, device=dev, generator=torch.Generator().manual_seed(0))
     model.eval()
     rows = []
     print("| bucket N | plain forward | kernel forward | speedup |", flush=True)

@@ -54,7 +54,7 @@ def validate_model(name: str, ds: SessionDataset, edges, args, device: torch.dev
     if name.startswith("graph_transformer"):
         kwargs["laplacian_k"] = 8
     model = create_model(name, ds.num_items, device=device,
-                         generator=torch.Generator(device).manual_seed(args.seed), **kwargs)
+                         generator=torch.Generator().manual_seed(args.seed), **kwargs)
     model.precompute_pe(*edges)
     optimizer = FusedEmbeddingAdamW(1e-3, weight_decay=1e-4)
     step = make_train_step(model, listwise_loss, optimizer, optimizer.init(model))

@@ -496,11 +496,12 @@ class Trainer:
     def init_state(self, reset_parameters: bool = True, opt_state: dict | None = None) -> dict:
         """Fresh optimizer state (or `opt_state`, to go on from it), and, unless
         `reset_parameters` is False (e.g. after loading weights), parameters
-        drawn anew from the Trainer's seed. Builds the train steps over that
+        drawn anew from the Trainer's seed through a CPU generator (the
+        weights do not depend on the device). Builds the train steps over that
         state (the chained step's graphs, captured over the previous state,
         go with it) and returns the state."""
         if reset_parameters:
-            self.model.reset_parameters(torch.Generator(self.device).manual_seed(self.seed))
+            self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         self.opt_state = self.optimizer.init(self.model) if opt_state is None else opt_state
         args = (self.model, self.loss_fn, self.optimizer, self.opt_state)
         if self.mesh is None:

@@ -89,8 +89,10 @@ def time_epochs(corpus: Path, chain: int, workers: int, transfer_workers: int, e
         ds = SessionDataset((z["sid"], z["ts"], z["items"]), (z["item_i"], z["item_j"]), num_negatives=5,
                             num_items=NUM_ITEMS)
     batch_kw = {"workers": workers} if pooled else {}
+    # No generator: seed 0 in every port (from a card generator before the
+    # weights were drawn on the host, from a CPU one since).
     model = create_model("graph_transformer_optimized", NUM_ITEMS, embedding_dim=256, hidden_dim=256,
-                         dropout=0.1, generator=torch.Generator("cuda").manual_seed(0))
+                         dropout=0.1)
     with torch.no_grad():
         model.cached_pe.zero_()
     trainer = Trainer(model, lambda e: iterate_batches(ds, BATCH, shuffle=True, seed=e, **batch_kw),

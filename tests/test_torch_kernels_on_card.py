@@ -42,6 +42,11 @@ the host functions of the by-value path). Node dropout's kernel EQUALS its
 plain version, forward and backward. Replayed graphs, a single step and
 groups of four, must EQUAL the eager unchained steps on the same state bit for
 bit, with the launch counters counting per step run.
+
+Seeded weights come from a CPU generator and are copied onto the card: a
+model of the registry drawn with ``device="cuda"`` must EQUAL the one drawn
+with ``device="cpu"`` from the same seed, bit for bit, as must a seeded
+``Trainer.init_state()`` and the main path's model at full width.
 """
 
 import numpy as np
@@ -811,7 +816,7 @@ def _train_setup(dev, dropout, lazy, seed=0):
 
     model = registry.create_model("graph_transformer_optimized", 600, embedding_dim=64, hidden_dim=64,
                                   laplacian_k=4, dropout=dropout, device=dev,
-                                  generator=torch.Generator(dev).manual_seed(seed))
+                                  generator=torch.Generator().manual_seed(seed))
     opt = FusedEmbeddingAdamW(1e-2, weight_decay=1e-4, lazy=lazy)
     rng = np.random.default_rng(seed)
     lengths = rng.integers(3, 9, 400)
@@ -989,7 +994,7 @@ def test_pipelined_trainer_from_a_cold_graph_cache_equals_the_inline_one(cuda, t
     def run(out, workers, transfer_workers):
         model = registry.create_model("graph_transformer_optimized", 2000, embedding_dim=64, hidden_dim=64,
                                       laplacian_k=4, dropout=0.1, device=cuda,
-                                      generator=torch.Generator(cuda).manual_seed(0))
+                                      generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, lambda e: batching.iterate_batches(ds, 128, shuffle=True, seed=e, workers=workers),
                           lambda: batching.iterate_batches(ds, 128), optimizer=FusedEmbeddingAdamW(1e-2, lazy=True),
                           output_dir=tmp_path / out, max_epochs=2, loss_fn=create_loss_function("dual"), seed=5,
@@ -1166,3 +1171,75 @@ def test_attention_kernels_with_a_first_session_draw_the_whole_batchs_bits(cuda,
     assert torch.equal(part == 0, whole[lo:hi] == 0)
     for got, want in zip(part_grads, grads):
         torch.testing.assert_close(got, want[lo:hi], **ATTN_GRAD_TOL)
+
+
+SEEDED_CASES = [
+    ("graph_transformer_optimized", {}),
+    ("graph_transformer", {}),
+    ("graph_transformer", {"readout_type": "attention", "use_laplacian_pe": False}),
+    ("gat", {}),
+    ("gat", {"concat_heads": True, "readout_type": "attention"}),
+    ("graphsage", {"aggregator": "mean"}),
+    ("graphsage", {"aggregator": "max"}),
+    ("graphsage", {"aggregator": "lstm"}),
+]
+
+
+def _assert_same_state(card, cpu):
+    got, want = card.state_dict(), cpu.state_dict()
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].device.type == "cuda", key
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fields", SEEDED_CASES)
+def test_seeded_weights_on_the_card_equal_the_cpus(cuda, name, fields):
+    from gat_recommendation_torch.models.registry import MODEL_NAMES, create_model
+
+    assert {n for n, _ in SEEDED_CASES} == set(MODEL_NAMES)
+    for seed in (None, 0, 11):
+        made = [create_model(name, 300, embedding_dim=16, hidden_dim=16, device=device,
+                             generator=None if seed is None else torch.Generator().manual_seed(seed), **fields)
+                for device in ("cuda", "cpu")]
+        _assert_same_state(*made)
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        create_model(name, 300, embedding_dim=16, hidden_dim=16, device="cuda",
+                     generator=torch.Generator(cuda).manual_seed(0), **fields)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_row,rows,total_rows,chunk_rows", [(0, 4096, 4096, 1000), (1024, 1024, 4096, None),
+                                                                  (3, 5, 11, 2), (0, 466_944, 466_944, None)])
+def test_a_table_drawn_in_chunks_for_the_card_equals_the_cpu_draw(cuda, first_row, rows, total_rows, chunk_rows,
+                                                                   monkeypatch):
+    from gat_recommendation_torch.models import base
+
+    if chunk_rows is not None:  # else the shipped chunk
+        monkeypatch.setattr(base, "DRAW_CHUNK_BYTES", chunk_rows * 256 * 4)
+    gen = torch.Generator().manual_seed(6)
+    table = torch.full((rows, 256), float("nan"), device=cuda)
+    base.draw_rows_uniform_(table, -0.1, 0.1, gen, total_rows=total_rows, first_row=first_row)
+    want_gen = torch.Generator().manual_seed(6)
+    one = torch.empty(total_rows, 256).uniform_(-0.1, 0.1, generator=want_gen)
+    assert torch.equal(table.cpu(), one[first_row:first_row + rows])
+    assert torch.equal(torch.rand(4, generator=gen), torch.rand(4, generator=want_gen))
+
+
+@pytest.mark.cuda
+def test_the_main_path_model_and_a_seeded_trainer_draw_the_cpus_weights_at_full_width(cuda, tmp_path):
+    """The optimized Graph Transformer at 466,865 items and 256/256 (the
+    bench's model), then ``Trainer(seed=7).init_state()`` over it, on the card
+    and on the CPU."""
+    from gat_recommendation_torch.models.registry import create_model
+    from gat_recommendation_torch.train.trainer import Trainer
+
+    made = {device: create_model("graph_transformer_optimized", 466_865, embedding_dim=256, hidden_dim=256,
+                                 device=device, generator=torch.Generator().manual_seed(0))
+            for device in ("cuda", "cpu")}
+    _assert_same_state(made["cuda"], made["cpu"])
+    for device, model in made.items():
+        Trainer(model, lambda epoch: iter(()), lambda: iter(()), output_dir=tmp_path / device, seed=7,
+                device=device).init_state()
+    _assert_same_state(made["cuda"], made["cpu"])
