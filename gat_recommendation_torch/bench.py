@@ -40,6 +40,7 @@ import argparse
 import gc
 import json
 import sys
+import threading
 import time
 
 import numpy as np
@@ -69,6 +70,7 @@ from gat_recommendation_torch.train.trainer import (
     transfer_chain_group,
     with_grad_index,
 )
+from gat_recommendation_torch.utils import tracing
 
 BASELINE_SESSIONS_PER_SEC = 120_436 / (27 * 60)  # reference: 27 min/epoch on an NVIDIA L4
 NUM_ITEMS = 466_865  # reference catalog size
@@ -149,66 +151,48 @@ def _fence(device: torch.device) -> None:
 
 
 class HostAccount:
-    """Where a timed window's host seconds go: waiting for the prefetch
-    thread's next item, dispatching chained entries and single steps, the
-    closing fence, and the garbage collections that ran inside it (their
-    seconds are also inside the others'); the longest wait or call, and
-    what it was; each epoch's host seconds; the graphs captured inside the
-    window (`graphs`, a ``GraphCache``, or None)."""
+    """Where a timed window's host seconds go, from the spans the pipeline
+    records inside it (``utils/tracing.py``, a ``recording()`` of the
+    window): on the thread that opened the window, waiting for the prefetch
+    thread's next item (``wait``), dispatching chained entries (``chained``
+    and the step ``block`` before it) and single steps (``single``), the
+    closing fence (``readback``); the garbage collections on any thread
+    (``gc``; their seconds are also inside the others'); the longest wait
+    or call, and what it was; each epoch's host seconds (``train.epoch``);
+    the graphs captured inside the window (``capture``)."""
 
-    def __init__(self, graphs=None):
-        self.graphs = graphs
-        self.seconds = dict.fromkeys(("wait", "chained", "single", "fence", "gc"), 0.0)
-        self.longest, self.longest_at = 0.0, None
-        self.epochs: list[float] = []
-        self.collections = 0
+    KINDS = {tracing.WAIT: "wait", tracing.CHAINED: "chained", tracing.BLOCK: "chained",
+             tracing.SINGLE: "single", tracing.READBACK: "fence"}
 
     def __enter__(self):
-        self.captured = 0 if self.graphs is None else len(self.graphs.graphs)
-        self._gc_start = None
-        self._start = self._epoch_start = time.perf_counter()
-        gc.callbacks.append(self._on_gc)
+        self._recording = tracing.recording()
+        self.spans = self._recording.__enter__().spans
+        self.tid = threading.get_native_id()
         return self
 
     def __exit__(self, *exc):
-        gc.callbacks.remove(self._on_gc)
-        self.captured = (0 if self.graphs is None else len(self.graphs.graphs)) - self.captured
-
-    def _on_gc(self, phase: str, info: dict) -> None:
-        if phase == "start":
-            self._gc_start = time.perf_counter()
-        elif self._gc_start is not None:
-            self.seconds["gc"] += time.perf_counter() - self._gc_start
-            self.collections += 1
-
-    def add(self, kind: str, since: float, at: str) -> None:
-        seconds = time.perf_counter() - since
-        self.seconds[kind] += seconds
-        if seconds > self.longest:
-            self.longest, self.longest_at = seconds, f"{kind} {at}"
-
-    def waited(self, items, epoch: int):
-        """`items`, with the wait for each one accounted."""
-        it, i = iter(items), 0
-        while True:
-            t = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            self.add("wait", t, f"epoch {epoch} item {i}")
-            i += 1
-            yield item
-
-    def epoch_ends(self) -> None:
-        now = time.perf_counter()
-        self.epochs.append(now - self._epoch_start)
-        self._epoch_start = now
+        self._recording.__exit__(*exc)
 
     def summary(self) -> dict:
-        return {**{f"{k}_s": v for k, v in self.seconds.items()}, "collections": self.collections,
-                "longest_s": self.longest, "longest": self.longest_at, "epoch_host_s": self.epochs,
-                "captured": self.captured}
+        seconds = dict.fromkeys(("wait", "chained", "single", "fence", "gc"), 0.0)
+        longest, longest_at = 0.0, None
+        for s in self.spans:
+            span_s = (s.end - s.start) / 1e9
+            if s.name == tracing.GC:
+                seconds["gc"] += span_s
+            kind = self.KINDS.get(s.name)
+            # A step block inside a single step is that step's.
+            if kind is None or s.tid != self.tid or (s.parent is not None and s.parent.name == tracing.SINGLE):
+                continue
+            seconds[kind] += span_s
+            if span_s > longest:
+                longest, longest_at = span_s, " ".join([kind, *(f"{k} {v}" for k, v in tracing.ids(s).items())])
+        mine = [s for s in self.spans if s.tid == self.tid]
+        return {**{f"{k}_s": v for k, v in seconds.items()},
+                "collections": sum(s.name == tracing.GC for s in self.spans),
+                "longest_s": longest, "longest": longest_at,
+                "epoch_host_s": [(s.end - s.start) / 1e9 for s in mine if s.name == tracing.EPOCH],
+                "captured": sum(s.name == tracing.CAPTURE for s in mine)}
 
 
 def touched_rows(ds: SessionDataset, chain: int, epochs: int = 2, workers: int = 0) -> dict:
@@ -264,8 +248,10 @@ def device_busy(run, device: torch.device) -> dict:
     busy = sum(e.self_device_time_total for e in rows) / 1e6 if rows else None
     # The trace's events refer to each other (parents and children), objects
     # that only the garbage collector frees. Free them now, so that their
-    # collection lands in no later timed window.
+    # collection lands in no later timed window; the spans the profiler's
+    # recording kept go too.
     del prof, rows
+    tracing.take()
     return {"device_busy_s": busy, "traced_epoch_s": wall, "trace_collection": collect_garbage(device)}
 
 
@@ -301,47 +287,40 @@ def main_e2e(num_sessions: int, workers: int, epochs_long: int, chain: int = 1, 
         return transfer_chain_group(items, chain, device, n_data)
 
     nsteps = 0
-    graphs = getattr(chained_step, "graphs", None)  # the chained step's GraphCache on the card
     hosts = {}
 
     def run_epochs(n_epochs: int, seed0: int, window: str) -> float:
         nonlocal nsteps
         _fence(device)
-        acct = HostAccount(graphs)
+        acct = HostAccount()
         t0 = time.perf_counter()
         loss = None
         with acct:
             for e in range(n_epochs):
                 raw = iterate_batches(ds, BATCH_SIZE, shuffle=True, seed=seed0 + e, engine="native",
                                       workers=workers, **feed)
-                if chain > 1:
-                    groups = prefetch_to_device(chain_iterator(raw, chain), size=4, transfer=transfer_group,
-                                                transfer_workers=transfer_workers, device=device)
-                    for entries in acct.waited(groups, e):
-                        for entry in entries:
-                            t = time.perf_counter()
-                            if isinstance(entry[0], str):  # ("chained", batches, gidxs)
-                                _, sb, sg = entry
-                                seeds = [mix_seed(0, 0, nsteps + i) for i in range(sg.uid.shape[0])]
-                                loss = chained_step(sb, sg,
-                                                    next_steps_block(model, optimizer, state, seeds, device))[-1]
-                                acct.add("chained", t, f"epoch {e} step {nsteps}")
-                                nsteps += len(seeds)
-                            else:
-                                loss = step(entry, mix_seed(0, 0, nsteps))
-                                acct.add("single", t, f"epoch {e} step {nsteps}")
-                                nsteps += 1
-                else:
-                    for db in acct.waited(prefetch_to_device(raw, size=4, transfer=transfer,
-                                                             transfer_workers=transfer_workers, device=device), e):
-                        t = time.perf_counter()
-                        loss = step(db, mix_seed(0, 0, nsteps))
-                        acct.add("single", t, f"epoch {e} step {nsteps}")
-                        nsteps += 1
-                acct.epoch_ends()
-            t = time.perf_counter()
-            _ = float(loss)  # the one fence: every step of the window has run
-            acct.add("fence", t, "end")
+                with tracing.span(tracing.EPOCH, epoch=e):
+                    if chain > 1:
+                        groups = prefetch_to_device(chain_iterator(raw, chain), size=4, transfer=transfer_group,
+                                                    transfer_workers=transfer_workers, device=device)
+                        for entries in groups:
+                            for entry in entries:
+                                if isinstance(entry[0], str):  # ("chained", batches, gidxs)
+                                    _, sb, sg = entry
+                                    seeds = [mix_seed(0, 0, nsteps + i) for i in range(sg.uid.shape[0])]
+                                    block = next_steps_block(model, optimizer, state, seeds, device)
+                                    loss = chained_step(sb, sg, block)[-1]
+                                    nsteps += len(seeds)
+                                else:
+                                    loss = step(entry, mix_seed(0, 0, nsteps))
+                                    nsteps += 1
+                    else:
+                        for db in prefetch_to_device(raw, size=4, transfer=transfer,
+                                                     transfer_workers=transfer_workers, device=device):
+                            loss = step(db, mix_seed(0, 0, nsteps))
+                            nsteps += 1
+            with tracing.span(tracing.READBACK):
+                _ = float(loss)  # the one fence: every step of the window has run
         hosts[window] = acct.summary()
         return time.perf_counter() - t0
 

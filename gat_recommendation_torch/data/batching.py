@@ -26,6 +26,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import itertools
 import queue
 import threading
 from pathlib import Path
@@ -37,6 +38,7 @@ import torch
 from gat_recommendation_torch.data.csv_io import read_csv
 from gat_recommendation_torch.device import capture_lock, resolve_device
 from gat_recommendation_torch.ops.masked import unpack_adjacency
+from gat_recommendation_torch.utils import tracing
 
 # Node-count buckets. Sessions are truncated to the last 50 events, so unique
 # context nodes <= 49 < 56; the largest bucket always fits and bigger node
@@ -552,6 +554,10 @@ def prefetch_to_device(iterator, size: int = 2, transfer=None, transfer_workers:
     the consumer's stream (``record_stream``), so the caching allocator does
     not hand its memory to a later transfer while the consumer's kernels
     still read it.
+
+    Spans (``utils/tracing.py``): each transfer is a ``transfer`` and each
+    wait of the consumer for its next item (and for the end) a ``wait``,
+    both with the item's position as ``batch``.
     """
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -560,15 +566,16 @@ def prefetch_to_device(iterator, size: int = 2, transfer=None, transfer_workers:
     move = transfer if transfer is not None else (lambda item: to_device(item, device))
     side = torch.cuda.Stream(device) if on_card else None
 
-    def staged(item):
-        if not on_card:
-            return move(item), None
-        with torch.cuda.stream(side):
-            out = move(item)
-            with capture_lock:
-                done = torch.cuda.Event()
-                done.record(side)
-        return out, done
+    def staged(i, item):
+        with tracing.span(tracing.TRANSFER, batch=i):
+            if not on_card:
+                return move(item), None
+            with torch.cuda.stream(side):
+                out = move(item)
+                with capture_lock:
+                    done = torch.cuda.Event()
+                    done.record(side)
+            return out, done
 
     def bind_device():
         if on_card:
@@ -585,10 +592,10 @@ def prefetch_to_device(iterator, size: int = 2, transfer=None, transfer_workers:
     def worker():
         try:
             bind_device()
-            for item in iterator:
+            for i, item in enumerate(iterator):
                 # Pool mode: the future is queued; a transfer's error surfaces
                 # at .result() in the consumer.
-                payload = pool.submit(staged, item) if pool else staged(item)
+                payload = pool.submit(staged, i, item) if pool else staged(i, item)
                 while not stop.is_set():
                     try:
                         q.put(payload, timeout=0.1)
@@ -610,18 +617,20 @@ def prefetch_to_device(iterator, size: int = 2, transfer=None, transfer_workers:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     try:
-        while True:
-            payload = q.get()
+        for i in itertools.count():
+            with tracing.span(tracing.WAIT, batch=i):
+                payload = q.get()
+                if payload is not sentinel:
+                    out, done = payload.result() if pool else payload
+                    if on_card:
+                        current = torch.cuda.current_stream(device)
+                        current.wait_event(done)
+                        for tensor in _tensors(out):
+                            tensor.record_stream(current)
             if payload is sentinel:
                 if error:
                     raise error[0]
                 return
-            out, done = payload.result() if pool else payload
-            if on_card:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(done)
-                for tensor in _tensors(out):
-                    tensor.record_stream(current)
             yield out
     finally:
         # Reached on close() or garbage collection of a part-consumed
@@ -766,7 +775,9 @@ def iterate_batches(
     ``workers > 0`` assembles the batches on a thread pool, at most
     ``2 * workers`` in flight, and yields them in order: the same epoch as
     ``workers=0``. The C++ engine releases the interpreter lock while it
-    assembles a batch, so its batches are built in parallel.
+    assembles a batch, so its batches are built in parallel. Each batch's
+    assembly is an ``assemble`` span (``utils/tracing.py``), its position in
+    the schedule its ``batch``.
 
     Several processes (the data ranks of a mesh): `batch_size` is the GLOBAL
     batch size. The schedule is a pure function of (dataset, seed), so every
@@ -809,19 +820,20 @@ def iterate_batches(
 
     def build(item):
         chunk, bucket_n, batch_index = item
-        lo = process_index * local
-        mine = chunk[lo:lo + local]
-        if engine == "native":
-            batch = native.assemble_batch(dataset, mine, local, bucket_n, _native_batch_seed(seed, batch_index),
-                                          slot_offset=lo)
-        else:
-            samples = [dataset.sample(i, _slot_rng(seed, batch_index, lo + s)) for s, i in enumerate(mine)]
-            samples += [None] * (local - len(mine))
-            batch = collate(samples, bucket_n, dataset.num_negatives)
-        if not with_global_meta:
-            return batch
-        return batch, _global_batch_meta(dataset, chunk, batch_size, bucket_n, seed, batch_index, engine,
-                                         with_global_ids)
+        with tracing.span(tracing.ASSEMBLE, batch=batch_index):
+            lo = process_index * local
+            mine = chunk[lo:lo + local]
+            if engine == "native":
+                batch = native.assemble_batch(dataset, mine, local, bucket_n,
+                                              _native_batch_seed(seed, batch_index), slot_offset=lo)
+            else:
+                samples = [dataset.sample(i, _slot_rng(seed, batch_index, lo + s)) for s, i in enumerate(mine)]
+                samples += [None] * (local - len(mine))
+                batch = collate(samples, bucket_n, dataset.num_negatives)
+            if not with_global_meta:
+                return batch
+            return batch, _global_batch_meta(dataset, chunk, batch_size, bucket_n, seed, batch_index, engine,
+                                             with_global_ids)
 
     if workers <= 0:
         for item in schedule:

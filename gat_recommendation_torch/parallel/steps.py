@@ -53,7 +53,7 @@ from gat_recommendation_torch.parallel.mesh import (
 )
 from gat_recommendation_torch.parallel.topk import sharded_topk
 from gat_recommendation_torch.train.optimizers import EMBEDDING_KEY, rest_parameters
-from gat_recommendation_torch.train.trainer import chain_steps, next_steps_block, sorted_segment_sum
+from gat_recommendation_torch.train.trainer import chain_steps, next_steps_block, single_step, sorted_segment_sum
 
 __all__ = [
     "make_chained_sharded_sparse_train_step",
@@ -211,7 +211,7 @@ def make_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_sta
         batch, gidx = _with_index(item, device)
         return body(batch, gidx, next_steps_block(model, optimizer, opt_state, [seed], device)[0])
 
-    return train_step
+    return single_step(train_step, opt_state)
 
 
 def make_chained_sharded_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict,
@@ -260,7 +260,7 @@ def make_sharded_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dic
         optimizer.update_full(grads, opt_state, model, step=row)
         return _global_loss(loss, mesh)
 
-    return train_step
+    return single_step(train_step, opt_state)
 
 
 def make_sharded_eval_step(model: nn.Module, k: int, mesh, method: str = "dense") -> Callable:

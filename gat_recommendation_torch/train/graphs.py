@@ -28,6 +28,9 @@ the events of earlier collectives, a call that the "global" mode forbids on
 every thread while a capture runs; ``capture_lock`` is what keeps the other
 threads' CUDA calls out of a capture.
 
+A replay is a ``replay`` span around the one ``cudaGraphLaunch``, a
+capture a ``capture`` span (``utils/tracing.py``).
+
 The graphs of one cache share one memory pool. That is safe here because a
 cache's graphs never run at once and every graph's output is copied out (or
 read) before another graph of the cache replays.
@@ -50,6 +53,7 @@ from gat_recommendation_torch.ops import (
     session_attention,
     sparse_adamw,
 )
+from gat_recommendation_torch.utils import tracing
 
 # Every wrapper's launch counter, as (function, attribute).
 COUNTERS = (
@@ -112,11 +116,13 @@ class GraphCache:
         buffer, which the next replay of this cache may overwrite."""
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture([t.clone() for t in inputs])
+            with tracing.span(tracing.CAPTURE):
+                entry = self.graphs[key] = self._capture([t.clone() for t in inputs])
         else:
             for buffer, t in zip(entry.inputs, inputs):
                 buffer.copy_(t)
-        entry.graph.replay()
+        with tracing.span(tracing.REPLAY):
+            entry.graph.replay()
         write_counters([n + d for n, d in zip(read_counters(), entry.launches)])
         return entry.output
 

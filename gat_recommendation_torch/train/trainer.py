@@ -57,6 +57,12 @@ GradIndexes built from the metas' global ids. Evaluation under a mesh stays
 unchained, as in the JAX package.
 Rank 0 alone writes files; checkpoints gather the table's rows to it and are
 the single-GPU format, which any mesh restores by cutting its rows.
+
+Spans (``utils/tracing.py``): an epoch is a ``train.epoch`` and a validation
+pass an ``eval.pass``; inside, each step block is a ``block``, each chained
+dispatch a ``chained`` and each single step a ``single`` (every caller of the
+step makers gets these), the closing readbacks ``readback``; evaluation adds
+``wait`` for each group of validation batches, ``copy`` and ``metrics``.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ from gat_recommendation_torch.train.optimizers import (
     FusedEmbeddingAdamW,
     rest_parameters,
 )
+from gat_recommendation_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -132,16 +139,28 @@ def make_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Ca
         optimizer.update_full(grads, opt_state, model, step=row)
         return loss.detach()
 
-    return train_step
+    return single_step(train_step, opt_state)
+
+
+def single_step(train_step: Callable, opt_state: dict) -> Callable:
+    """`train_step` as every step maker returns it: each call a ``single``
+    span (``step``: the optimizer's count before it)."""
+
+    def traced(batch, seed: int = 0) -> torch.Tensor:
+        with tracing.span(tracing.SINGLE, step=opt_state["count"]):
+            return train_step(batch, seed)
+
+    return traced
 
 
 def next_steps_block(model: nn.Module, optimizer, opt_state: dict, step_seeds, device) -> torch.Tensor:
     """The step block of the next ``len(step_seeds)`` steps of
     `optimizer` over `model` (counts from ``opt_state["count"] + 1``), on
     `device`."""
-    return step_block.build(opt_state["count"], step_seeds, b1=optimizer.b1, b2=optimizer.b2,
-                            num_layers=model.config.num_layers, seeds_per_layer=model.seeds_per_layer,
-                            device=device)
+    with tracing.span(tracing.BLOCK, step=opt_state["count"], steps=len(step_seeds)):
+        return step_block.build(opt_state["count"], step_seeds, b1=optimizer.b1, b2=optimizer.b2,
+                                num_layers=model.config.num_layers, seeds_per_layer=model.seeds_per_layer,
+                                device=device)
 
 
 def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:
@@ -176,7 +195,7 @@ def make_sparse_train_step(model: nn.Module, loss_fn, optimizer, opt_state: dict
         device = batch.node_ids.device
         return body(batch, gidx, next_steps_block(model, optimizer, opt_state, [seed], device)[0])
 
-    return train_step
+    return single_step(train_step, opt_state)
 
 
 def _sparse_step_body(model: nn.Module, loss_fn, optimizer, opt_state: dict) -> Callable:
@@ -266,11 +285,13 @@ def chain_steps(body: Callable, model: nn.Module, opt_state: dict) -> Callable:
     a body's NCCL collectives are captured with it): the graphs do not depend on C, so
     sub-chains and full groups replay the same graph, and a capture costs one
     warm-up step and one recorded one. The host's count goes on by C.
+    Each call is a ``chained`` span carrying C steps.
     """
     if model.get_parameter(EMBEDDING_KEY).device.type != "cuda":
         def run_slots(batches: SessionBatch, gidxs: GradIndex, block: torch.Tensor) -> torch.Tensor:
-            return torch.stack([body(_slot(batches, i), _slot(gidxs, i), block[i])
-                                for i in range(block.shape[0])])
+            with tracing.span(tracing.CHAINED, step=opt_state["count"], steps=block.shape[0]):
+                return torch.stack([body(_slot(batches, i), _slot(gidxs, i), block[i])
+                                    for i in range(block.shape[0])])
 
         return run_slots
     n_batch = len(dataclasses.fields(SessionBatch))
@@ -282,13 +303,14 @@ def chain_steps(body: Callable, model: nn.Module, opt_state: dict) -> Callable:
     cache = GraphCache(step, _train_state(model, opt_state), opt_state)
 
     def chained(batches: SessionBatch, gidxs: GradIndex, block: torch.Tensor) -> torch.Tensor:
-        flat = [*_fields(batches), *_fields(gidxs), block]
-        losses = torch.empty(block.shape[0], device=block.device)
-        for i in range(block.shape[0]):
-            slot = [t[i] for t in flat]
-            losses[i].copy_(cache.run(tuple(t.shape for t in slot), slot))
-        opt_state["count"] += block.shape[0]
-        return losses
+        with tracing.span(tracing.CHAINED, step=opt_state["count"], steps=block.shape[0]):
+            flat = [*_fields(batches), *_fields(gidxs), block]
+            losses = torch.empty(block.shape[0], device=block.device)
+            for i in range(block.shape[0]):
+                slot = [t[i] for t in flat]
+                losses[i].copy_(cache.run(tuple(t.shape for t in slot), slot))
+            opt_state["count"] += block.shape[0]
+            return losses
 
     chained.graphs = cache
     return chained
@@ -477,6 +499,7 @@ class Trainer:
         self.chained_dispatches = 0
         self.chained_eval_dispatches = 0
         self._n_evals = 0
+        self._eval_passes = 0
         self._latest_saved_epoch: int | None = None
         self._best_snapshot: tuple | None = None
         self.opt_state: dict | None = None
@@ -554,6 +577,15 @@ class Trainer:
         step with the step seeds the unchained loop would use."""
         if self._train_step is None:
             self.init_state(reset_parameters=False)
+        with tracing.span(tracing.EPOCH, epoch=self.current_epoch):
+            losses = self._epoch_losses()
+            if not losses:
+                return 0.0
+            with tracing.span(tracing.READBACK):
+                return float(torch.cat([loss.reshape(-1) for loss in losses]).mean())  # the epoch's one readback
+
+    def _epoch_losses(self) -> list:
+        """Run the epoch's steps; their losses, on the device."""
         losses = []
         if self.chain > 1:
             chain, device, n_data = self.chain, self.device, self._n_data
@@ -579,15 +611,29 @@ class Trainer:
                                          transfer_workers=self.transfer_workers, device=self.device)
             for step, batch in enumerate(batches):
                 losses.append(self._train_step(batch, self.step_seed(step)))
-        if not losses:
-            return 0.0
-        return float(torch.cat([loss.reshape(-1) for loss in losses]).mean())  # the epoch's one readback
+        return losses
 
     def evaluate(self) -> dict:
         """recall@k and ndcg@k over ``val_batches()``, after the lazy
         optimizer's pending row updates are flushed (so the table read is the
         dense trajectory's, as is what a save after it writes). Per-batch
         top-k stays on the device; one concatenated readback at the end."""
+        self._eval_passes += 1
+        with tracing.span(tracing.PASS, pass_=self._eval_passes - 1):
+            predictions, targets = self._predictions()
+            with tracing.span(tracing.METRICS):
+                metrics = {}
+                for k in self.k_values:
+                    metrics[f"recall@{k}"] = compute_recall_at_k(predictions, targets, k)
+                    metrics[f"ndcg@{k}"] = compute_ndcg_at_k(predictions, targets, k)
+        if self.record_hits:
+            # Per-session hit vector at k_values[0], in the (fixed) val order.
+            k0 = self.k_values[0]
+            self.hits.append((predictions[:, :k0] == targets[:, None]).any(axis=1).astype(np.int8))
+        return metrics
+
+    def _predictions(self) -> tuple[np.ndarray, np.ndarray]:
+        """The top-k ids of every valid validation session and its target, on the host."""
         self._materialize()
         device_tops, masks, targets = [], [], []
         # With a chain, full groups of one node bucket are one chained
@@ -595,23 +641,34 @@ class Trainer:
         # the batches', so predictions align with targets. Under a mesh an
         # item is (local batch, GlobalBatchMeta): the top-k ids of the data
         # ranks are gathered, and the meta holds the global targets and mask.
-        groups = chain_iterator(self.val_batches(), self.chain) if self._chained_eval is not None else (
-            [batch] for batch in self.val_batches())
-        for group in groups:
+        groups = iter(chain_iterator(self.val_batches(), self.chain) if self._chained_eval is not None else (
+            [batch] for batch in self.val_batches()))
+        first = 0  # the position of the group's first batch
+        while True:
+            with tracing.span(tracing.WAIT, batch=first):
+                group = next(groups, None)
+            if group is None:
+                break
             if len(group) == self.chain > 1:
-                tops = self._chained_eval(to_device(stack_batches(group), self.device))
+                with tracing.span(tracing.COPY, batch=first):
+                    stacked = to_device(stack_batches(group), self.device)
+                with tracing.span(tracing.CHAINED, batch=first, steps=len(group)):
+                    tops = self._chained_eval(stacked)
                 device_tops.append(tops.reshape(-1, tops.shape[-1]))
                 self.chained_eval_dispatches += 1
             else:
-                device_tops.extend(self._eval_step(to_device(item[0] if isinstance(item, tuple) else item,
-                                                             self.device)) for item in group)
+                for i, item in enumerate(group, first):
+                    with tracing.span(tracing.COPY, batch=i):
+                        batch = to_device(item[0] if isinstance(item, tuple) else item, self.device)
+                    with tracing.span(tracing.SINGLE, batch=i):
+                        device_tops.append(self._eval_step(batch))
             rows = [item[1] if isinstance(item, tuple) else item for item in group]
             masks.extend(np.asarray(r.sample_mask) for r in rows)
             targets.extend(np.asarray(r.targets) for r in rows)
+            first += len(group)
         if not device_tops:
-            predictions = np.zeros((0, max(self.k_values)), int)
-            targets_arr = np.zeros((0,), int)
-        else:
+            return np.zeros((0, max(self.k_values)), int), np.zeros((0,), int)
+        with tracing.span(tracing.READBACK):
             if self.mesh is not None:
                 from gat_recommendation_torch.parallel.distributed import allgather
 
@@ -619,18 +676,8 @@ class Trainer:
                 all_tops = np.concatenate([allgather(t, group) for t in device_tops])
             else:
                 all_tops = torch.cat(device_tops, dim=0).cpu().numpy()
-            mask = np.concatenate(masks)
-            predictions = all_tops[mask]
-            targets_arr = np.concatenate(targets)[mask]
-        metrics = {}
-        for k in self.k_values:
-            metrics[f"recall@{k}"] = compute_recall_at_k(predictions, targets_arr, k)
-            metrics[f"ndcg@{k}"] = compute_ndcg_at_k(predictions, targets_arr, k)
-        if self.record_hits:
-            # Per-session hit vector at k_values[0], in the (fixed) val order.
-            k0 = self.k_values[0]
-            self.hits.append((predictions[:, :k0] == targets_arr[:, None]).any(axis=1).astype(np.int8))
-        return metrics
+        mask = np.concatenate(masks)
+        return all_tops[mask], np.concatenate(targets)[mask]
 
     def _materialize(self) -> None:
         """Flush the lazy optimizer's pending row updates (a no-op otherwise)."""
